@@ -1,0 +1,490 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py          # from the repository root; needs one card
+
+Phases, each printed on its own ``[phase]`` line; any failure raises and
+the script exits nonzero without printing a result:
+
+  device   the card's name and power limit (nvidia-smi); no card -> exit 1
+  build    nvcc builds kernels B1-B3 from src/repro_torch/kernels/csrc/
+  kernels  B1-B3 against their plain PyTorch versions on the card, bit for
+           bit: a ragged tensor with zero rows (bits 8 and 4) and a 2^26-
+           element slice of the main path's shape
+  serve    the main path at the full width of h2o-danube-1.8b (bf16, random
+           weights from a seed): a DeltaStore with the qsgd_kernel
+           compressor stores two users (each put runs B2 and B1 and passes
+           the bitwise certificate), a BlockPool pages them in (B3), and a
+           PersonalizedBatcher answers 6 requests over 2 slots.  Every
+           prefill and decode step is checked bitwise against serving the
+           users' materialized params; serve/page_in ledger bytes must equal
+           the payload bytes of the misses; B1-B3 must have launched.
+  ref      the port's forward on the card agrees with the CPU on a small
+           f32 model (stated tolerance), greedy tokens equal
+  timing   B1-B3 at the main path's shape with CUDA events (median), beside
+           the plain versions, the byte bound and B3's torch.mul yardstick
+
+The last three lines are the kernels JSON, the nvidia-smi line and
+``{"ok": true, "device": {...}}``.
+"""
+import gc
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+# the delta and materialized paths must get identical cuBLAS results
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(ROOT, "src")
+
+ARCH = "h2o-danube-1.8b"
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
+F32_FLOPS = 67e12              # H100 SXM f32 rate outside the tensor cores
+N_SLOTS, MAX_LEN, PROMPT, MAX_NEW = 2, 64, 16, 8
+USERS = (0, 1)
+REQUEST_USERS = (0, 1, None, 1, 0, None)
+REF_ATOL = 1e-4                # f32 logits, card vs CPU (summation order)
+
+# id, wrapper name, TPU kernel replaced, f32 operations per element
+KERNEL_INFO = (
+    ("B1", "quant_dequant_2d", "src/repro/kernels/quant8.py:37", 8),
+    ("B2", "quant_pack_2d", "src/repro/kernels/bitpack.py:101", 7),
+    ("B3", "unpack_dequant_2d", "src/repro/kernels/bitpack.py:131", 2),
+)
+KERNEL_SOURCE = "src/repro_torch/kernels/csrc/quant.cu"
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def require(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(phase, msg):
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def bits_equal(a, b):
+    """Bitwise equality of two tensors of one dtype."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        return bool(torch.equal(a.view(view), b.view(view)))
+    return bool(torch.equal(a, b))
+
+
+def max_abs_err(a, b):
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+# ---------------------------------------------------------------------------
+def phase_device():
+    import torch
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false: no card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    smi = smi.strip().splitlines()[0].strip()
+    log("device", f"{torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
+                  f"torch {torch.__version__} cuda {torch.version.cuda} | "
+                  f"count {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return smi
+
+
+def phase_build():
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    path = build.build()
+    log("build", f"{time.perf_counter() - t0:.2f} s: {path.name}")
+    for line in build.BUILD_LOG.splitlines():
+        if "registers" in line or "spill" in line:
+            log("build", f"{build.SOURCE.name}: {line.strip()}")
+
+
+def compare_kernels(x2d, u2d, bits):
+    """Run B1-B3 and their plain versions on (rows, 512) inputs; raise unless
+    bitwise equal.  Returns {name: max_abs_err}."""
+    from repro_torch.kernels import bitpack, quant8, ref
+    out = quant8.quant_dequant_2d(x2d, u2d, bits)
+    want = ref.quant_dequant_ref(x2d, u2d, bits)
+    errs = {"quant_dequant_2d": max_abs_err(out, want)}
+    require(bits_equal(out, want), f"B1 != plain (bits={bits})")
+    del want
+    q, s = bitpack.quant_pack_2d(x2d, u2d, bits)
+    qw, sw = ref.quant_pack_ref(x2d, u2d, bits)
+    errs["quant_pack_2d"] = max(max_abs_err(q, qw), max_abs_err(s, sw))
+    require(bits_equal(q, qw) and bits_equal(s, sw), f"B2 != plain (bits={bits})")
+    del qw, sw
+    deq = bitpack.unpack_dequant_2d(q, s)
+    want = ref.unpack_dequant_ref(q, s)
+    errs["unpack_dequant_2d"] = max_abs_err(deq, want)
+    require(bits_equal(deq, want), f"B3 != plain (bits={bits})")
+    require(bits_equal(deq, out), f"B3(B2) != B1 (bits={bits})")
+    return errs
+
+
+def phase_kernels(device):
+    import torch
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=device).manual_seed(11)
+    d = 5 * 512 + 37                                       # ragged tail
+    x = torch.randn(d, generator=g, device=device) * 3.0
+    x[1024:1536] = 0.0                                     # an all-zero row
+    for bits in (8, 4):
+        noise = torch.rand((ops.tile_rows(d), 512), generator=g, device=device)
+        padded, noise, _ = ops._quant_tiles(x, noise)
+        compare_kernels(padded, noise, bits)
+    rows = (1 << 26) // 512
+    x2 = torch.randn((rows, 512), generator=g, device=device) * 0.02
+    x2[::97] = 0.0
+    u2 = torch.rand((rows, 512), generator=g, device=device)
+    compare_kernels(x2, u2, 8)
+    log("kernels", f"B1-B3 == plain bit for bit: ragged d={d} (bits 8, 4), "
+                   f"slice {rows}x512 (bits 8)")
+
+
+# ---------------------------------------------------------------------------
+def checked_batcher_class():
+    import torch
+    from repro_torch.serve import PersonalizedBatcher
+
+    class CheckedBatcher(PersonalizedBatcher):
+        """Runs the materialized path beside every delta-path step and
+        requires bitwise-equal logits; times the delta path alone."""
+
+        def __init__(self, *args, eff_by_uid, **kw):
+            self.eff_by_uid = eff_by_uid
+            self.slot_uid = [None] * kw["n_slots"]
+            self.mcache = None
+            self.times = {"prefill": [], "decode": [], "page_in": []}
+            self.checked = 0
+            super().__init__(*args, **kw)
+
+        def _timed(self, key, fn):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
+            out = fn()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.times[key].append(time.perf_counter() - t0)
+            return out
+
+        def _on_admit(self, slot, req):
+            miss = req.user_id is not None and not self.pool.is_resident(req.user_id)
+            if miss:
+                self._timed("page_in", lambda: super(CheckedBatcher, self)._on_admit(slot, req))
+            else:
+                super()._on_admit(slot, req)
+            self.slot_uid[slot] = req.user_id
+
+        def _on_retire(self, slot, req):
+            super()._on_retire(slot, req)
+            self.slot_uid[slot] = None
+
+        def _check(self, logits, lm, what):
+            require(bool(torch.isfinite(logits.float()).all()), f"{what}: non-finite logits")
+            require(bits_equal(logits, lm), f"{what}: delta path != materialized path")
+            self.checked += 1
+
+        def _eff(self):
+            return [self.eff_by_uid[u] for u in self.slot_uid]
+
+        def _model_prefill(self, batch):
+            out = self._timed("prefill", lambda: super(CheckedBatcher, self)._model_prefill(batch))
+            lm, self.mcache = self.engine.prefill_materialized(self._eff(), batch["tokens"])
+            self._check(out[0], lm, f"prefill {len(self.times['prefill'])}")
+            return out
+
+        def _model_decode(self, tok):
+            out = self._timed("decode", lambda: super(CheckedBatcher, self)._model_decode(tok))
+            lm, self.mcache = self.engine.decode_materialized(self._eff(), tok, self.mcache)
+            self._check(out[0], lm, f"decode {len(self.times['decode'])}")
+            return out
+
+    return CheckedBatcher
+
+
+class MemMarks:
+    """Peak and live device memory per step (torch.cuda allocator stats);
+    records nothing off the card."""
+
+    def __init__(self, device):
+        import torch
+        self.device, self.marks = device, []
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+
+    def mark(self, label):
+        import torch
+        if self.device.type != "cuda":
+            return
+        torch.cuda.synchronize(self.device)
+        self.marks.append((label, torch.cuda.max_memory_allocated(self.device),
+                           torch.cuda.memory_allocated(self.device)))
+        torch.cuda.reset_peak_memory_stats(self.device)
+
+
+def breakdown(cfg, store, pool, engine, device):
+    """Where one slot's delta-path decode step goes: the f32 ``eff`` rebuild
+    (gather + add), the cast to the bf16 tree, and the model's decode_step
+    (CUDA events, medians)."""
+    import torch
+    from repro_torch.comm.buckets import debucketize
+    from repro_torch.models import decode_step, prefill
+
+    table = pool.table_for(USERS[0])                # resident: no pool traffic
+    t_eff = cuda_ms(lambda: engine.delta_eff(pool, table))
+    eff = engine.delta_eff(pool, table)
+    t_cast = cuda_ms(lambda: debucketize(eff, store.layout))
+    params = debucketize(eff, store.layout)
+    del eff
+    tok = torch.ones((1, PROMPT), dtype=torch.long, device=device)
+    t_pre = cuda_ms(lambda: prefill(params, cfg, {"tokens": tok}, cache_len=MAX_LEN))
+    _, cache = prefill(params, cfg, {"tokens": tok}, cache_len=MAX_LEN)
+    t_dec = cuda_ms(lambda: decode_step(params, cfg, tok[:, :1], cache))
+    log("serve", f"one slot's decode step: eff gather+add {t_eff:.2f} ms, cast to "
+                 f"bf16 tree {t_cast:.2f} ms, decode_step {t_dec:.2f} ms; "
+                 f"prefill({PROMPT} tokens) {t_pre:.2f} ms (CUDA events, medians)")
+
+
+def phase_serve(cfg, device):
+    """The main path.  Returns (launch counts, rows of the quantized delta)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.comm.buckets import bucketize
+    from repro_torch.comm.ledger import PAGE_IN_TAG, PAGE_OUT_TAG
+    from repro_torch.core.compressors import make_compressor
+    from repro_torch.kernels.ops import tile_rows
+    from repro_torch.models import init_params
+    from repro_torch.serve import BlockPool, DeltaStore, personalize_leaves
+    from repro_torch.training.serving import Request
+    from repro_torch.utils.device import fold_seed
+    from repro_torch.utils.tree import tree_leaves
+
+    on_card = device.type == "cuda"
+    mem = MemMarks(device)
+    t0 = time.perf_counter()
+    params = init_params(0, cfg, device=device)
+    n_params = sum(int(leaf.numel()) for leaf in tree_leaves(params))
+    log("serve", f"{cfg.name}: {n_params} params ({cfg.dtype}) initialised "
+                 f"in {time.perf_counter() - t0:.2f} s")
+    mem.mark("init")
+
+    # -- main path, part 1: the store (B2 + B1 per put, B3 in the certificate)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    store = DeltaStore(params, make_compressor("qsgd_kernel", bits=8), seed=7)
+    for uid in USERS:
+        pers = personalize_leaves(params, fold_seed(1, uid), match=("norm",))
+        store.put(uid, pers)
+        del pers
+    if on_card:
+        torch.cuda.synchronize(device)
+    counts = kernels.launch_counts()
+    del params
+    mem.mark("puts")
+    rows = tile_rows(store.layout.padded_d)
+    log("serve", f"store: {store.layout.n_buckets} blocks of {store.layout.bucket_size}, "
+                 f"delta rows {rows}; {len(USERS)} certified puts in "
+                 f"{time.perf_counter() - t0:.2f} s; payload bytes "
+                 f"{[store.nbytes(u) for u in USERS]}; page_out "
+                 f"{store.ledger.bytes_by_tag().get(PAGE_OUT_TAG, 0)}")
+
+    # -- oracle (not counted): materialized per-user blocks, pool sizing
+    eff_by_uid = {None: store.base_blocks}
+    need = 0
+    for uid in USERS:
+        need += int(store.blocks(uid).ne(0).any(dim=1).sum())
+        eff_by_uid[uid] = bucketize(store.personalized_params(uid),
+                                    store.layout.bucket_size)[0]
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    mem.mark("oracle")
+
+    # -- main path, part 2: page-in (B3) and serving
+    kernels.reset_launch_counts()
+    pool = BlockPool(store, capacity_blocks=need)
+    Batcher = checked_batcher_class()
+    b = Batcher(cfg, store, pool, n_slots=N_SLOTS, max_len=MAX_LEN, eff_by_uid=eff_by_uid)
+    rng = np.random.default_rng(5)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, PROMPT),
+                    max_new=MAX_NEW, user_id=u) for i, u in enumerate(REQUEST_USERS)]
+    for r in reqs:
+        b.submit(r)
+    t0 = time.perf_counter()
+    stats = b.run(max_ticks=1000)
+    if on_card:
+        torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    for k, v in kernels.launch_counts().items():
+        counts[k] += v
+    mem.mark("serve")
+
+    require(stats.completed == len(reqs), f"completed {stats.completed} of {len(reqs)}")
+    require(all(len(r.generated) == MAX_NEW and all(0 <= t < cfg.vocab_size
+                                                    for t in r.generated) for r in reqs),
+            "generated tokens out of range")
+    page_in = store.ledger.bytes_by_tag().get(PAGE_IN_TAG, 0)
+    want = sum(store.nbytes(u) for u in USERS)
+    require(pool.misses == len(USERS), f"{pool.misses} misses, expected {len(USERS)}")
+    require(page_in == want == pool.bytes_paged_in,
+            f"serve/page_in {page_in} != payload bytes of the misses {want}")
+    pre, dec = b.times["prefill"], b.times["decode"]
+    busy = sum(pre) + sum(dec)
+    ms = lambda xs: [round(1e3 * t, 2) for t in xs]
+    log("serve", f"{len(reqs)} requests ({stats.tokens_out} tokens) over {N_SLOTS} slots "
+                 f"in {wall:.2f} s with checks; {b.checked} steps bitwise equal to "
+                 f"the materialized path (prefill + every decode step)")
+    log("serve", f"delta path (host clock, synchronized): prefill ms {ms(pre)}; decode "
+                 f"median {1e3 * statistics.median(dec):.2f} ms/step (n={len(dec)}, "
+                 f"first {1e3 * dec[0]:.2f}); {stats.tokens_out / busy:.2f} tokens/s over "
+                 f"prefill+decode time; page-in ms {ms(b.times['page_in'])}")
+    log("serve", f"serve/page_in {page_in} bytes == payload bytes of {pool.misses} misses; "
+                 f"pool {pool.stats()}")
+    if on_card:
+        breakdown(cfg, store, pool, b.engine, device)
+        mem.mark("breakdown")
+        log("serve", "memory GiB (peak during / allocated after): " + ", ".join(
+            f"{k} {p / 2**30:.2f}/{a / 2**30:.2f}" for k, p, a in mem.marks)
+            + f"; overall peak {max(p for _, p, _ in mem.marks) / 2**30:.2f}")
+    log("serve", "kernels " + json.dumps(counts))
+    del b, pool, store, eff_by_uid
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return counts, rows
+
+
+def phase_ref(device):
+    """Small f32 model: the port's forward on ``device`` vs the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_params, prefill
+    from repro_torch.utils.tree import tree_map
+
+    cfg = get_config(ARCH).reduced()
+    p_cpu = init_params(3, cfg, device="cpu")
+    p_dev = tree_map(lambda a: a.to(device), p_cpu)
+    toks = torch.as_tensor(np.random.default_rng(3).integers(1, cfg.vocab_size, (2, 24)))
+    l_cpu, _ = prefill(p_cpu, cfg, {"tokens": toks}, cache_len=40)
+    l_dev, _ = prefill(p_dev, cfg, {"tokens": toks.to(device)}, cache_len=40)
+    err = max_abs_err(l_cpu, l_dev.cpu())
+    require(err <= REF_ATOL, f"prefill logits card vs CPU: {err} > {REF_ATOL}")
+    g_cpu = generate(cfg, p_cpu, toks, 8)
+    g_dev = generate(cfg, p_dev, toks.to(device), 8)
+    require(np.array_equal(g_cpu, g_dev), "greedy tokens card != CPU")
+    log("ref", f"reduced {ARCH} f32: prefill logits max |card - CPU| = {err:.3g} "
+               f"(<= {REF_ATOL}); 8 greedy tokens equal")
+
+
+# ---------------------------------------------------------------------------
+def cuda_ms(fn, reps=5, warmup=1):
+    """Median of ``reps`` CUDA-event timings of ``fn()``, after ``warmup``."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def phase_timing(rows, device, counts):
+    """B1-B3 at the main path's (rows, 512) shape: bitwise check, then times."""
+    import torch
+    from repro_torch.kernels import bitpack, quant8, ref
+
+    n = rows * 512
+    g = torch.Generator(device=device).manual_seed(13)
+    x = torch.randn((rows, 512), generator=g, device=device).mul_(0.02)
+    x[::997] = 0.0
+    u = torch.rand((rows, 512), generator=g, device=device)
+    bytes_ = {"quant_dequant_2d": n * 12,
+              "quant_pack_2d": n * 9 + rows * 4,
+              "unpack_dequant_2d": n * 5 + rows * 4}
+    calls = {
+        "quant_dequant_2d": (lambda: quant8.quant_dequant_2d(x, u),
+                             lambda: ref.quant_dequant_ref(x, u), None),
+        "quant_pack_2d": (lambda: bitpack.quant_pack_2d(x, u),
+                          lambda: ref.quant_pack_ref(x, u), None),
+    }
+    errs = compare_kernels(x, u, 8)
+    results = {}
+    for name, (kern, plain, lib) in calls.items():
+        results[name] = (cuda_ms(kern), cuda_ms(plain, reps=3), None)
+    q, s = bitpack.quant_pack_2d(x, u)
+    del x, u
+    gc.collect()
+    torch.cuda.empty_cache()
+    results["unpack_dequant_2d"] = (
+        cuda_ms(lambda: bitpack.unpack_dequant_2d(q, s)),
+        cuda_ms(lambda: ref.unpack_dequant_ref(q, s), reps=3),
+        cuda_ms(lambda: torch.mul(q, s)))
+    del q, s
+    out = []
+    for kid, name, replaces, ops_per_elem in KERNEL_INFO:
+        ms, plain_ms, lib_ms = results[name]
+        t_bytes = 1e3 * bytes_[name] / HBM_BYTES_PER_S
+        t_ops = 1e3 * ops_per_elem * n / F32_FLOPS
+        entry = {"id": kid, "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+                 "replaces": replaces, "launches": counts[name],
+                 "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "library_ms": lib_ms}
+        out.append(entry)
+        log("timing", f"{kid} {name} ({rows}x512): {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                      f"bound {entry['bound_ms']:.3f} ms ({entry['bound_by']}, "
+                      f"{bytes_[name] / 1e9:.2f} GB), library "
+                      f"{'n/a' if lib_ms is None else f'{lib_ms:.3f} ms'}, "
+                      f"{100 * entry['bound_ms'] / ms:.1f}% of bound")
+    return out
+
+
+def main():
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        raise SmokeFailure(f"{SRC}/repro_torch not found: run from the repository")
+    sys.path.insert(0, SRC)
+    import torch
+    smi = phase_device()
+    device = torch.device("cuda", 0)
+    from repro_torch.configs import get_config
+    phase_build()
+    phase_kernels(device)
+    counts, rows = phase_serve(get_config(ARCH), device)
+    for kid, name, _, _ in KERNEL_INFO:
+        require(counts[name] > 0, f"{kid} {name} was not launched on the main path")
+    phase_ref(device)
+    kernels = phase_timing(rows, device, counts)
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

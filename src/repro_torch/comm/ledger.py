@@ -1,0 +1,99 @@
+"""Byte-accurate communication ledger (the port's copy of
+``repro/comm/ledger.py``): one record per message on one link, the tag
+registry, and the per-round/link/kind/tag aggregates.  The topology-based
+round-time simulation and the HLO cross-check stay with the training slice.
+"""
+from __future__ import annotations
+
+from collections import defaultdict
+from dataclasses import dataclass, field
+from typing import Dict, List
+
+RETRY_TAG = "retry"          # retransmissions after a drop / checksum failure
+UPLOAD_TAG = "upload"        # leaf -> aggregator payloads
+BROADCAST_TAG = "broadcast"  # aggregator -> leaf model pushes
+PAGE_IN_TAG = "serve/page_in"    # delta store -> serving block pool (a miss)
+PAGE_OUT_TAG = "serve/page_out"  # trainer -> delta store persist (a put)
+WIRE_SCHEME_TAGS = frozenset(
+    {"dense", "sparse_idx32", "sparse_block", "sparse_bitmap", "quant"})
+
+_RUNTIME_TAGS: set = set()
+
+
+def register_tag(tag: str) -> str:
+    """Register a runtime tag (tree level names etc.); returns it unchanged."""
+    _RUNTIME_TAGS.add(str(tag))
+    return str(tag)
+
+
+def known_tags() -> frozenset:
+    return (frozenset({RETRY_TAG, UPLOAD_TAG, BROADCAST_TAG,
+                       PAGE_IN_TAG, PAGE_OUT_TAG})
+            | WIRE_SCHEME_TAGS | frozenset(_RUNTIME_TAGS))
+
+
+@dataclass(frozen=True)
+class CommRecord:
+    round: int
+    link: str
+    kind: str       # "intra" | "inter"
+    nbytes: int
+    phase: int = 0
+    tag: str = ""
+    chunk: int = -1
+
+
+@dataclass
+class CommLedger:
+    records: List[CommRecord] = field(default_factory=list)
+
+    def record(self, round: int, link: str, nbytes, kind: str = "inter",
+               phase: int = 0, tag: str = "", chunk: int = -1) -> CommRecord:
+        rec = CommRecord(int(round), link, kind, int(nbytes), int(phase), tag,
+                         int(chunk))
+        self.records.append(rec)
+        return rec
+
+    def record_payload(self, round: int, link: str, payload,
+                       kind: str = "inter", phase: int = 0,
+                       tag: str = "") -> CommRecord:
+        return self.record(round, link, payload.nbytes, kind=kind, phase=phase,
+                           tag=tag or payload.scheme)
+
+    def merge(self, other: "CommLedger") -> "CommLedger":
+        self.records.extend(other.records)
+        return self
+
+    @property
+    def total_bytes(self) -> int:
+        return sum(r.nbytes for r in self.records)
+
+    @property
+    def total_bits(self) -> int:
+        return 8 * self.total_bytes
+
+    def n_rounds(self) -> int:
+        return (max(r.round for r in self.records) + 1) if self.records else 0
+
+    def _by(self, attr: str) -> Dict:
+        out: Dict = defaultdict(int)
+        for r in self.records:
+            out[getattr(r, attr)] += r.nbytes
+        return dict(out)
+
+    def bytes_by_round(self) -> Dict[int, int]:
+        return self._by("round")
+
+    def bytes_by_link(self) -> Dict[str, int]:
+        return self._by("link")
+
+    def bytes_by_kind(self) -> Dict[str, int]:
+        return self._by("kind")
+
+    def bytes_by_tag(self) -> Dict[str, int]:
+        return self._by("tag")
+
+    def summary(self) -> str:
+        kinds = ";".join(f"{k}={v}" for k, v in sorted(self.bytes_by_kind().items()))
+        return (f"rounds={self.n_rounds()} msgs={len(self.records)} "
+                f"bytes={self.total_bytes} ({kinds})")

@@ -1,0 +1,25 @@
+"""Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
+
+  B1 quant8.quant_dequant_2d    fused absmax quantize + dequantize
+  B2 bitpack.quant_pack_2d      quantize to the int8 + scale wire planes
+  B3 bitpack.unpack_dequant_2d  wire planes back to dense
+
+Each wrapper counts its launches in a plain integer attribute
+(``wrapper.launches``), incremented only where the CUDA kernel launches.
+"""
+from repro_torch.kernels import bitpack, quant8
+
+KERNELS = {
+    "quant_dequant_2d": quant8.quant_dequant_2d,
+    "quant_pack_2d": bitpack.quant_pack_2d,
+    "unpack_dequant_2d": bitpack.unpack_dequant_2d,
+}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

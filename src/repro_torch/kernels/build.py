@@ -1,0 +1,147 @@
+"""Build the CUDA kernels with nvcc and bind them through ctypes.
+
+``csrc/quant.cu`` is compiled on first use into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds), cached
+under ``_build/`` by a hash of the source and the flags.  Nothing here runs
+at import time: the CPU tests import every module on a machine with neither
+nvcc nor a card.
+
+Flags pin the numerics the kernels promise: no fast-math, IEEE division and
+square root, no flush-to-zero, no FMA contraction.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SOURCE = CSRC / "quant.cu"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + (
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-ftz=false", "-prec-div=true", "-prec-sqrt=true", "-fmad=false",
+    "-Xptxas", "-v",
+)
+
+# C entry points: name -> argtypes (pointers and the stream as c_void_p)
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+SIGNATURES = {
+    "repro_quant_dequant_2d": (_P, _P, _P, _I64, _I32, _P),
+    "repro_quant_pack_2d": (_P, _P, _P, _P, _I64, _I32, _P),
+    "repro_unpack_dequant_2d": (_P, _P, _P, _I64, _P),
+}
+
+_LIB: Optional[ctypes.CDLL] = None
+BUILD_LOG = ""   # nvcc's output of the last build (the ptxas -v report)
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused the source."""
+
+
+def nvcc_path() -> str:
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    cands.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in cands:
+        if c.is_file():
+            return str(c)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise KernelBuildError("nvcc not found (set CUDA_HOME)")
+    return found
+
+
+def library_path() -> Path:
+    """Where the library lives: named by a hash of source + flags."""
+    h = hashlib.sha256(SOURCE.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{SOURCE.stem}-{h.hexdigest()[:16]}.so"
+
+
+def nvcc_command(out: Path, nvcc: str = "nvcc") -> list:
+    return [nvcc, *NVCC_FLAGS, "-o", str(out), str(SOURCE)]
+
+
+def build() -> Path:
+    """Compile the library unless it is already built; return its path.
+
+    Raises ``KernelBuildError`` with nvcc's output if the compile fails.
+    """
+    global BUILD_LOG
+    path = library_path()
+    if path.is_file():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.run(nvcc_command(Path(tmp), nvcc_path()), stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    BUILD_LOG = proc.stdout
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise KernelBuildError(f"nvcc failed for {SOURCE.name} "
+                               f"(rc {proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, path)    # atomic: concurrent builds agree
+    return path
+
+
+def load() -> ctypes.CDLL:
+    """The bound library, built on first use."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call C entry ``entry`` with ``args`` (tensors become their data
+    pointers) on ``device``'s current stream; raise on a nonzero error."""
+    lib = load()
+    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(*conv, stream)
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{entry} failed to launch: {msg} ({err})")
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
+                 shape: tuple, device: Optional[torch.device] = None,
+                 align: int = 16) -> None:
+    """Raise on what the kernels do not take: wrong dtype, shape, device or
+    a non-contiguous / misaligned buffer."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if t.device.type == "cuda" and t.data_ptr() % align:
+        raise ValueError(f"{name}: data pointer not {align}-byte aligned")
+
+
+def require_cuda(t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"kernels run on CUDA tensors (or the CPU's plain "
+                         f"version); got a tensor on {t.device}")

@@ -1,0 +1,140 @@
+"""Batched multi-user forward: per-slot delta application (port of
+``repro/serve/engine.py``).
+
+Slot ``b``'s effective parameters are
+
+    eff_b = base_blocks + pool_blocks[table_b]          # (n_blocks, bs) f32
+    params_b = debucketize(eff_b)                       # the user's tree
+
+The JAX package vmaps over slots inside one jit; the port runs a per-slot
+loop, so a full-width model holds one slot's f32 ``eff`` at a time.  The
+delta path (``prefill``/``decode``) and the materialized path
+(``prefill_materialized``/``decode_materialized``, fed fully materialized
+per-slot blocks) run the same ``_slot_*`` code on the same shapes, which is
+what lets serving a user's compressed delta be certified bitwise against
+serving their materialized params.
+
+The engine's cache is a list of per-slot model caches.
+
+:class:`PersonalizedBatcher` plugs the engine into the continuous batcher:
+admission pins the user's delta in the pool (paging it in on a miss) and
+retirement releases the pin.
+"""
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+
+from repro_torch.comm.buckets import bucketize, debucketize
+from repro_torch.models import decode_step, prefill as model_prefill, require_supported
+from repro_torch.serve.deltas import DeltaStore
+from repro_torch.serve.pool import BlockPool
+from repro_torch.training.serving import ContinuousBatcher, Request
+
+
+class DeltaServeEngine:
+    """Prefill/decode where each batch slot applies its own delta."""
+
+    def __init__(self, cfg, store: DeltaStore, max_len: int = 128):
+        require_supported(cfg)          # decoder-only attention models
+        self.cfg = cfg
+        self.store = store
+        self.layout = store.layout
+        self.max_len = int(max_len)
+
+    # -- one slot (shared by both paths) ------------------------------------
+    def _slot_prefill(self, eff_b: torch.Tensor, tokens_b: torch.Tensor):
+        params = debucketize(eff_b, self.layout)
+        logits, cache = model_prefill(params, self.cfg, {"tokens": tokens_b[None]},
+                                      cache_len=self.max_len)
+        return logits[0], cache
+
+    def _slot_decode(self, eff_b: torch.Tensor, tok_b: torch.Tensor, cache_b: dict):
+        params = debucketize(eff_b, self.layout)
+        logits, cache = decode_step(params, self.cfg, tok_b[None], cache_b)
+        return logits[0], cache
+
+    def delta_eff(self, pool: BlockPool, table: torch.Tensor) -> torch.Tensor:
+        """One slot's effective f32 blocks ``base + pool[table]``."""
+        # pool[table] + base == base + pool[table]: IEEE addition commutes
+        return torch.index_select(pool.blocks, 0, table).add_(self.store.base_blocks)
+
+    def _run(self, one, eff_of, n: int, *per_slot):
+        outs = [one(eff_of(b), *(a[b] for a in per_slot)) for b in range(n)]
+        return torch.stack([o[0] for o in outs]), [o[1] for o in outs]
+
+    def _tables(self, tables) -> torch.Tensor:
+        return torch.as_tensor(tables, dtype=torch.int32, device=self.store.device)
+
+    # -- delta path (production) ---------------------------------------------
+    def prefill(self, pool: BlockPool, tables, tokens: torch.Tensor):
+        """tables (B, n_blocks) int; tokens (B, L) -> (logits (B,1,V), caches)."""
+        tables = self._tables(tables)
+        return self._run(self._slot_prefill, lambda b: self.delta_eff(pool, tables[b]),
+                         tokens.shape[0], tokens)
+
+    def decode(self, pool: BlockPool, tables, tok: torch.Tensor, cache: List[dict]):
+        tables = self._tables(tables)
+        return self._run(self._slot_decode, lambda b: self.delta_eff(pool, tables[b]),
+                         tok.shape[0], tok, cache)
+
+    # -- materialized path (oracle / full-copy serving) ----------------------
+    def prefill_materialized(self, eff_blocks: Sequence[torch.Tensor], tokens: torch.Tensor):
+        """``eff_blocks[b]`` is slot b's (n_blocks, bs) f32 blocks."""
+        return self._run(self._slot_prefill, lambda b: eff_blocks[b],
+                         tokens.shape[0], tokens)
+
+    def decode_materialized(self, eff_blocks: Sequence[torch.Tensor], tok: torch.Tensor,
+                            cache: List[dict]):
+        return self._run(self._slot_decode, lambda b: eff_blocks[b],
+                         tok.shape[0], tok, cache)
+
+    def eff_blocks_for(self, params_list: List) -> torch.Tensor:
+        """Per-slot materialized trees -> (B, n_blocks, bs) blocks."""
+        out = []
+        for p in params_list:
+            blocks, layout = bucketize(p, self.layout.bucket_size)
+            if layout.shapes != self.layout.shapes:
+                raise ValueError("materialized tree does not match store layout")
+            out.append(blocks)
+        return torch.stack(out)
+
+
+class PersonalizedBatcher(ContinuousBatcher):
+    """Continuous batcher whose slots each serve their own personalized user.
+
+    Admission ``acquire``s the request's ``user_id`` from the block pool
+    (page-in on a miss, pinned while scheduled); retirement releases the pin
+    and zeroes the slot's block table.  ``user_id=None`` serves the bare base
+    model (all-zero table, nothing pinned).
+    """
+
+    def __init__(self, cfg, store: DeltaStore, pool: BlockPool,
+                 n_slots: int = 4, max_len: int = 128):
+        self.store = store
+        self.pool = pool
+        self._tables = torch.zeros((n_slots, store.layout.n_buckets),
+                                   dtype=torch.int32, device=store.device)
+        super().__init__(cfg, params=None, n_slots=n_slots, max_len=max_len,
+                         device=store.device)
+
+    def _build_model(self) -> None:
+        self.engine = DeltaServeEngine(self.cfg, self.store, self.max_len)
+
+    def _model_prefill(self, batch):
+        return self.engine.prefill(self.pool, self._tables, batch["tokens"])
+
+    def _model_decode(self, tok):
+        return self.engine.decode(self.pool, self._tables, tok, self.cache)
+
+    def _on_admit(self, slot: int, req: Request) -> None:
+        if req.user_id is None:
+            self._tables[slot] = 0
+            return
+        self._tables[slot] = self.pool.acquire(req.user_id).table
+
+    def _on_retire(self, slot: int, req: Request) -> None:
+        self._tables[slot] = 0
+        if req.user_id is not None:
+            self.pool.release(req.user_id)

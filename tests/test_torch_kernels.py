@@ -1,0 +1,193 @@
+"""Port kernels B1-B3: plain versions vs the JAX Pallas kernels, and the
+CUDA kernels vs the plain versions on the card.
+
+Parity tolerance: none — every comparison is bitwise.  The JAX side runs the
+Pallas kernels in interpret mode, as the JAX package's own tests do; inputs
+and noise are made from a seed with numpy (``ops`` tests draw the noise with
+``jax.random.uniform(key, padded.shape)`` and inject it into the port).
+Tests marked ``cuda`` need an NVIDIA card and skip without one.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels import bitpack, build, ops, quant8, ref
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module")
+def jx():
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels import bitpack as jbp
+    from repro.kernels import ops as jops
+    from repro.kernels import quant8 as jq8
+    return jax, jnp, jq8, jbp, jops
+
+
+def _bits(a) -> bytes:
+    return np.ascontiguousarray(np.asarray(a)).tobytes()
+
+
+def _tiles(rows=64, seed=0):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((rows, 512))
+         * rng.uniform(1e-3, 50.0, (rows, 1))).astype(np.float32)
+    x[3] = 0.0
+    x[rows - 2] = 0.0
+    u = rng.random((rows, 512), dtype=np.float32)
+    return x, u
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_plain_kernels_bitwise_equal_jax_interpret(jx, bits):
+    jax, jnp, jq8, jbp, _ = jx
+    x, u = _tiles(seed=bits)
+    tx, tu = torch.from_numpy(x), torch.from_numpy(u)
+    out = quant8.quant_dequant_2d(tx, tu, bits)
+    q, s = bitpack.quant_pack_2d(tx, tu, bits)
+    deq = bitpack.unpack_dequant_2d(q, s)
+    jout = jq8.quant_dequant_2d(jnp.asarray(x), jnp.asarray(u), bits=bits)
+    jq, js = jbp.quant_pack_2d(jnp.asarray(x), jnp.asarray(u), bits=bits)
+    jdeq = jbp.unpack_dequant_2d(jq, js)
+    assert _bits(out.numpy()) == _bits(jout)
+    assert _bits(q.numpy()) == _bits(jq)
+    assert _bits(s.numpy()) == _bits(js)
+    assert _bits(deq.numpy()) == _bits(jdeq)
+    assert _bits(deq.numpy()) == _bits(out.numpy())      # B3(B2) == B1
+
+
+def test_scale_rule_follows_the_pallas_kernels_not_ref(jx):
+    """absmax * f32(1/s), not absmax / s: the rows where the two roundings
+    differ must take the kernels' value."""
+    x, u = _tiles(rows=256, seed=3)
+    amax = np.abs(x).max(axis=1).astype(np.float32)
+    s = np.float32(127)
+    by_div = amax / s
+    by_recip = amax * (np.float32(1) / s)
+    differ = by_div != by_recip
+    assert differ.any()                      # the input exercises the gap
+    _, scales = bitpack.quant_pack_2d(torch.from_numpy(x), torch.from_numpy(u), 8)
+    got = scales.numpy()[:, 0]
+    nz = amax != 0
+    assert np.array_equal(got[nz], by_recip[nz])
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_ops_bitwise_equal_jax_ops(jx, bits):
+    jax, jnp, _, _, jops = jx
+    rng = np.random.default_rng(10 + bits)
+    d = 3000
+    x = (rng.standard_normal(d) * 4).astype(np.float32)
+    x[512:1024] = 0.0                                    # a whole zero row
+    key = jax.random.PRNGKey(bits)
+    noise = np.array(jax.random.uniform(key, (ops.tile_rows(d), 512), jnp.float32))
+    tx, tn = torch.from_numpy(x), torch.from_numpy(noise)
+    q, s = ops.quantize_pack(tx, noise=tn, bits=bits)
+    jq, js = jops.quantize_pack(jnp.asarray(x), key, bits=bits)
+    assert _bits(q.numpy()) == _bits(jq) and _bits(s.numpy()) == _bits(js)
+    qd = ops.quantize_dequantize(tx, noise=tn, bits=bits)
+    jqd = jops.quantize_dequantize(jnp.asarray(x), key, bits=bits)
+    assert _bits(qd.numpy()) == _bits(jqd)
+    ud = ops.unpack_dequantize(q, s, d)
+    jud = jops.unpack_dequantize(jq, js, d)
+    assert _bits(ud.numpy()) == _bits(jud) == _bits(qd.numpy())
+
+
+def test_ops_generator_noise_is_reproducible():
+    x = torch.randn(2000, generator=torch.Generator().manual_seed(0))
+    a = ops.quantize_dequantize(x, generator=torch.Generator().manual_seed(5))
+    b = ops.quantize_dequantize(x, generator=torch.Generator().manual_seed(5))
+    assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="noise= or generator="):
+        ops.quantize_dequantize(x)
+
+
+@pytest.mark.parametrize("n", [9, 10])
+def test_nibble_pack_matches_jax_and_roundtrips(jx, n):
+    _, jnp, _, _, jops = jx
+    q = np.random.default_rng(n).integers(-8, 8, n).astype(np.int8)
+    packed = ops.nibble_pack(torch.from_numpy(q))
+    assert _bits(packed.numpy()) == _bits(jops.nibble_pack(jnp.asarray(q)))
+    assert np.array_equal(ops.nibble_unpack(packed, n).numpy(), q)
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    kernels.reset_launch_counts()
+    x, u = _tiles(rows=8)
+    tx, tu = torch.from_numpy(x), torch.from_numpy(u)
+    quant8.quant_dequant_2d(tx, tu)
+    q, s = bitpack.quant_pack_2d(tx, tu)
+    bitpack.unpack_dequant_2d(q, s)
+    assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    x, u = (torch.from_numpy(a) for a in _tiles(rows=16))
+    with pytest.raises(TypeError):
+        quant8.quant_dequant_2d(x.double(), u)
+    with pytest.raises(ValueError):
+        quant8.quant_dequant_2d(x[:12], u[:12])              # rows % 8
+    with pytest.raises(ValueError):
+        bitpack.quant_pack_2d(x, u[:8])                      # noise shape
+    with pytest.raises(ValueError):
+        bitpack.quant_pack_2d(x.t().contiguous().t(), u)     # not contiguous
+    q, s = bitpack.quant_pack_2d(x, u)
+    with pytest.raises(ValueError):
+        bitpack.unpack_dequant_2d(q, s[:8])
+    with pytest.raises(ValueError):                          # neither CPU nor CUDA
+        quant8.quant_dequant_2d(x.to("meta"), u.to("meta"))
+
+
+def test_nvcc_command_pins_the_numerics():
+    cmd = build.nvcc_command(build.BUILD_DIR / "x.so")
+    flat = " ".join(cmd)
+    assert "arch=compute_90a,code=sm_90a" in flat
+    for flag in ("-ftz=false", "-prec-div=true", "-fmad=false", "-shared"):
+        assert flag in cmd
+    assert "fast_math" not in flat and "use_fast_math" not in flat
+    assert build.SOURCE.is_file() and build.SOURCE.parent == build.CSRC
+    assert build.library_path().parent == build.BUILD_DIR
+    for entry in build.SIGNATURES:
+        assert entry in build.SOURCE.read_text()
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (none present)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cuda_kernels_bitwise_equal_plain(cuda_device, bits):
+    x, u = _tiles(rows=1024, seed=bits)
+    tx, tu = torch.from_numpy(x).to(cuda_device), torch.from_numpy(u).to(cuda_device)
+    kernels.reset_launch_counts()
+    out = quant8.quant_dequant_2d(tx, tu, bits)
+    q, s = bitpack.quant_pack_2d(tx, tu, bits)
+    deq = bitpack.unpack_dequant_2d(q, s)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {name: 1 for name in kernels.KERNELS}
+    qr, sr = ref.quant_pack_ref(tx, tu, bits)
+    assert torch.equal(out.view(torch.int32), ref.quant_dequant_ref(tx, tu, bits).view(torch.int32))
+    assert torch.equal(q, qr) and torch.equal(s.view(torch.int32), sr.view(torch.int32))
+    assert torch.equal(deq.view(torch.int32), out.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_ops_ragged_equal_cpu(cuda_device):
+    """The padded, ragged ops path on the card equals the CPU's bit for bit."""
+    d = 5 * 512 + 37
+    x = torch.randn(d, generator=torch.Generator().manual_seed(1)) * 3
+    x[1024:1536] = 0.0
+    noise = torch.rand((ops.tile_rows(d), 512), generator=torch.Generator().manual_seed(2))
+    cpu = ops.quantize_dequantize(x, noise=noise)
+    card = ops.quantize_dequantize(x.to(cuda_device), noise=noise.to(cuda_device))
+    assert torch.equal(card.cpu().view(torch.int32), cpu.view(torch.int32))
