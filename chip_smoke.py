@@ -7,7 +7,7 @@ Phases, each printed on its own ``[phase]`` line; any failure raises and
 the script exits nonzero without printing a result:
 
   device   the card's name and power limit (nvidia-smi); no card -> exit 1
-  build    nvcc builds kernels B1-B3 from src/repro_torch/kernels/csrc/
+  build    nvcc builds kernels B1-B3 and B7/B8 from src/repro_torch/kernels/csrc/
   kernels  B1-B3 against their plain PyTorch versions on the card, bit for
            bit: a ragged tensor with zero rows (bits 8 and 4) and a 2^26-
            element slice of the main path's shape
@@ -21,8 +21,18 @@ the script exits nonzero without printing a result:
            the payload bytes of the misses; B1-B3 must have launched.
   ref      the port's forward on the card agrees with the CPU on a small
            f32 model (stated tolerance), greedy tokens equal
-  timing   B1-B3 at the main path's shape with CUDA events (median), beside
-           the plain versions, the byte bound and B3's torch.mul yardstick
+  prune    the second path: SymWanda pruning of full-width h2o-danube-1.8b
+           (bf16, seed 0) through its CLI (launch/prune.py): the loss ladder
+           of magnitude / wanda / ria / symwanda at 50% and 60%, wanda +
+           R^2-DSnoT and wanda 2:4; B8 and B7 must have launched.  Then on
+           all 24 w_in layers, for every mode and sparsity: B8 and B7 bit
+           for bit equal to their plain versions on the same tau / scores,
+           the B8 wanda mask equal to core.symwanda.prune's, and every B7
+           disagreement with mask_nm inside a group of tied scores
+  timing   B1-B3 at the serve path's shape and B7/B8 at one full-width
+           w_in (2560 x 6912 bf16) on the card (CUDA events, medians or
+           queued runs), beside the plain versions, the byte bound and B3's
+           torch.mul yardstick
 
 The last three lines are the kernels JSON, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -30,6 +40,7 @@ The last three lines are the kernels JSON, the nvidia-smi line and
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -56,6 +67,11 @@ KERNEL_INFO = (
     ("B3", "unpack_dequant_2d", "src/repro/kernels/bitpack.py:131", 2),
 )
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/quant.cu"
+PRUNE_INFO = (
+    ("B7", "nm_prune_2d", "src/repro/kernels/nm_prune.py:45"),
+    ("B8", "wanda_prune_2d", "src/repro/kernels/wanda_score.py:60"),
+)
+PRUNE_SOURCE = "src/repro_torch/kernels/csrc/prune.cu"
 
 
 class SmokeFailure(RuntimeError):
@@ -107,10 +123,15 @@ def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     path = build.build()
-    log("build", f"{time.perf_counter() - t0:.2f} s: {path.name}")
+    log("build", f"{time.perf_counter() - t0:.2f} s: {path.name} from "
+                 f"{', '.join(src.name for src in build.SOURCES)}")
+    kernel = ""
     for line in build.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
-            log("build", f"{build.SOURCE.name}: {line.strip()}")
+        m = re.search(r"\d([a-z][a-z_]*_kernel)(I\w*?E)?E", line)
+        if "entry function" in line and m:       # the mangled name, shortened
+            kernel = m.group(1) + (m.group(2) or "")
+        elif "registers" in line or "spill" in line:
+            log("build", f"{kernel}: {line.replace('ptxas info    :', '').strip()}")
 
 
 def compare_kernels(x2d, u2d, bits):
@@ -395,6 +416,97 @@ def phase_ref(device):
 
 
 # ---------------------------------------------------------------------------
+def phase_prune(cfg, device):
+    """The pruning path, then its checks.  Returns (launch counts of the
+    path, {kernel: max |kernel - plain|}, (layer 0's w_in, calibration X))."""
+    import math
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import symwanda as sw
+    from repro_torch.kernels import nm_prune, ops, ref, wanda_score
+    from repro_torch.launch import prune as prune_cli
+    from repro_torch.models import init_params
+
+    from repro_torch.configs import get_config
+
+    on_card = device.type == "cuda"
+    mem = MemMarks(device)
+    # -- main path: the CLI a user runs, on the card (its default device)
+    argv = ["--arch", cfg.name, "--seed", "0"] + ([] if on_card else ["--device", "cpu"])
+    if cfg != get_config(cfg.name):
+        require(cfg == get_config(cfg.name).reduced(), "a config the CLI cannot name")
+        argv.append("--reduced")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ladder = prune_cli.main(argv)
+    if on_card:
+        torch.cuda.synchronize(device)
+    counts = kernels.launch_counts()
+    mem.mark("ladder")
+    require(all(math.isfinite(v) for v in ladder.values()), f"non-finite loss: {ladder}")
+    log("prune", f"loss ladder of {len(ladder)} rows in {time.perf_counter() - t0:.2f} s; "
+                 f"dense {ladder['dense']:.4f} vs ln V {math.log(cfg.vocab_size):.4f}; "
+                 f"kernels {json.dumps(counts)}")
+
+    # -- checks (their launches are not counted)
+    t0 = time.perf_counter()
+    params = init_params(0, cfg, device=device)
+    X = prune_cli.calib_acts(params, cfg, prune_cli.calib_batch(cfg, 0, device))
+    stack = params["blocks"]["pos0"]["mlp"]["w_in"]
+    errs = {"nm_prune_2d": 0.0, "wanda_prune_2d": 0.0}
+    n_checked = nm_differ = 0
+    for li in range(stack.shape[0]):
+        W = stack[li]
+        d_in, d_out = W.shape
+        for mode in prune_cli.FUSED:
+            for sparsity in prune_cli.SPARSITIES:
+                wp, kw, _ = ops.scored_args(W, X, mode, sparsity)
+                out, mask = wanda_score.wanda_prune_2d(wp, **kw)
+                ro, rm = ref.wanda_prune_ref(wp, **kw)
+                what = f"B8 layer {li} {mode}@{sparsity}"
+                require(bits_equal(out, ro) and bits_equal(mask, rm), f"{what} != plain")
+                errs["wanda_prune_2d"] = max(errs["wanda_prune_2d"], max_abs_err(out, ro),
+                                             max_abs_err(mask, rm))
+                k = max(1, int(round((1 - sparsity) * d_in)))
+                require(int(mask.sum(0, dtype=torch.int32).min()) >= k,
+                        f"{what}: a column keeps fewer than {k}")
+                if mode == "wanda":
+                    _, m_mod = sw.prune(W, X, method="wanda", sparsity=sparsity)
+                    require(torch.equal(mask.float(), m_mod), f"{what} != symwanda.prune")
+                n_checked += 1
+        S = sw.score_wanda(W, X)
+        out, mask = nm_prune.nm_prune_2d(W, S, 2, 4)
+        ro, rm = ref.nm_prune_ref(W, S, 2, 4)
+        require(bits_equal(out, ro) and bits_equal(mask, rm), f"B7 layer {li} != plain")
+        errs["nm_prune_2d"] = max(errs["nm_prune_2d"], max_abs_err(out, ro),
+                                  max_abs_err(mask, rm))
+        grp = mask.reshape(d_in // 4, 4, d_out)
+        require(bool((grp.sum(1, dtype=torch.int32) == 2).all()), f"B7 layer {li}: not 2:4")
+        differ = (mask.float() != sw.mask_nm(S, 2, 4)).reshape(d_in // 4, 4, d_out).any(1)
+        tied = (S.reshape(d_in // 4, 4, d_out).sort(1).values.diff(dim=1) == 0).any(1)
+        require(not bool((differ & ~tied).any()),
+                f"B7 layer {li}: a disagreement with mask_nm in a group without ties")
+        nm_differ += int(differ.sum())
+        n_checked += 1
+    if on_card:
+        torch.cuda.synchronize(device)
+    mem.mark("checks")
+    log("prune", f"{n_checked} kernel calls on {stack.shape[0]} w_in {tuple(stack.shape[1:])} "
+                 f"{stack.dtype} layers bit for bit equal to the plain versions; B8 wanda "
+                 f"masks == symwanda.prune; B7 vs mask_nm: {nm_differ} differing groups, "
+                 f"all with tied scores; {time.perf_counter() - t0:.2f} s")
+    if on_card:
+        log("prune", "memory GiB (peak during / allocated after): " + ", ".join(
+            f"{k} {p / 2**30:.2f}/{a / 2**30:.2f}" for k, p, a in mem.marks))
+    layer = (stack[0].clone(), X)
+    del params, stack
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return counts, errs, layer
+
+
+# ---------------------------------------------------------------------------
 def cuda_ms(fn, reps=5, warmup=1):
     """Median of ``reps`` CUDA-event timings of ``fn()``, after ``warmup``."""
     import torch
@@ -464,6 +576,73 @@ def phase_timing(rows, device, counts):
     return out
 
 
+def queued_ms(fn, n=20, sleep_cycles=100_000_000):
+    """Device ms per call of ``n`` calls queued back to back behind a device
+    sleep, so the host's launch overhead stays off the device's clock."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(sleep_cycles)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def phase_prune_timing(layer, counts, errs):
+    """B7 and B8 at one full-width w_in: times (median of 5 queued runs),
+    bounds, and the kernels JSON entries."""
+    import torch
+    from repro_torch.core import symwanda as sw
+    from repro_torch.kernels import nm_prune, ops, ref, wanda_score
+
+    W, X = layer
+    d_in, d_out = W.shape
+    n = d_in * d_out
+    es = W.element_size()
+    med = lambda fn, k: statistics.median(queued_ms(fn, k) for _ in range(5))
+    times, bytes_, ops_ = {}, {}, {}
+    for mode in ("wanda", "ria", "symwanda"):
+        wp, kw, _ = ops.scored_args(W, X, mode, 0.5)
+        times[mode] = (med(lambda: wanda_score.wanda_prune_2d(wp, **kw), 20),
+                       med(lambda: ref.wanda_prune_ref(wp, **kw), 5))
+        # w read once, out and mask written once, the f32 statistics read once
+        vec = {"wanda": d_in + d_out,                  # xnorm, tau
+               "ria": 2 * (d_in + d_out),              # + rowsum, colsum
+               "symwanda": d_in + 2 * d_out}[mode]     # + ynorm
+        bytes_[mode] = 3 * es * n + 4 * vec
+        # per element: abs, the score's multiplies / divides / add, the
+        # compare and the product
+        ops_[mode] = {"wanda": 4, "ria": 7, "symwanda": 10}[mode] * n
+    S = sw.score_wanda(W, X)
+    times["2:4"] = (med(lambda: nm_prune.nm_prune_2d(W, S, 2, 4), 20),
+                    med(lambda: ref.nm_prune_ref(W, S, 2, 4), 5))
+    bytes_["2:4"] = 3 * es * n + 4 * n          # + the f32 scores
+    ops_["2:4"] = 17 * n        # per element: 4 + 4 compares, their 8 adds, the product
+    rows = {}
+    for key, (ms, plain_ms) in times.items():
+        t_bytes = 1e3 * bytes_[key] / HBM_BYTES_PER_S
+        t_ops = 1e3 * ops_[key] / F32_FLOPS
+        rows[key] = (ms, plain_ms, max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations")
+        log("timing", f"{'B7 nm_prune_2d 2:4' if key == '2:4' else f'B8 wanda_prune_2d {key}'} "
+                      f"({d_in}x{d_out} {W.dtype}): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                      f"bound {rows[key][2]:.4f} ms ({rows[key][3]}, "
+                      f"{bytes_[key] / 1e6:.1f} MB), library n/a, "
+                      f"{100 * rows[key][2] / ms:.1f}% of bound")
+    out = []
+    for (kid, name, replaces), key in zip(PRUNE_INFO, ("2:4", "wanda")):
+        ms, plain_ms, bound_ms, bound_by = rows[key]
+        out.append({"id": kid, "name": name, "route": "cuda", "source": PRUNE_SOURCE,
+                    "replaces": replaces, "launches": counts[name],
+                    "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         raise SmokeFailure(f"{SRC}/repro_torch not found: run from the repository")
@@ -478,7 +657,11 @@ def main():
     for kid, name, _, _ in KERNEL_INFO:
         require(counts[name] > 0, f"{kid} {name} was not launched on the main path")
     phase_ref(device)
+    prune_counts, prune_errs, layer = phase_prune(get_config(ARCH), device)
+    for kid, name, _ in PRUNE_INFO:
+        require(prune_counts[name] > 0, f"{kid} {name} was not launched on the prune path")
     kernels = phase_timing(rows, device, counts)
+    kernels += phase_prune_timing(layer, prune_counts, prune_errs)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,16 +3,20 @@
   B1 quant8.quant_dequant_2d    fused absmax quantize + dequantize
   B2 bitpack.quant_pack_2d      quantize to the int8 + scale wire planes
   B3 bitpack.unpack_dequant_2d  wire planes back to dense
+  B7 nm_prune.nm_prune_2d       N:M structured prune by score
+  B8 wanda_score.wanda_prune_2d fused wanda/ria/symwanda score + mask
 
 Each wrapper counts its launches in a plain integer attribute
 (``wrapper.launches``), incremented only where the CUDA kernel launches.
 """
-from repro_torch.kernels import bitpack, quant8
+from repro_torch.kernels import bitpack, nm_prune, quant8, wanda_score
 
 KERNELS = {
     "quant_dequant_2d": quant8.quant_dequant_2d,
     "quant_pack_2d": bitpack.quant_pack_2d,
     "unpack_dequant_2d": bitpack.unpack_dequant_2d,
+    "nm_prune_2d": nm_prune.nm_prune_2d,
+    "wanda_prune_2d": wanda_score.wanda_prune_2d,
 }
 
 

@@ -1,10 +1,11 @@
 """Build the CUDA kernels with nvcc and bind them through ctypes.
 
-``csrc/quant.cu`` is compiled on first use into a shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds), cached
-under ``_build/`` by a hash of the source and the flags.  Nothing here runs
-at import time: the CPU tests import every module on a machine with neither
-nvcc nor a card.
+``csrc/quant.cu`` (B1-B3) and ``csrc/prune.cu`` (B7, B8) are compiled on
+first use into one shared library with a plain C interface (no PyTorch
+headers, so a build takes seconds), cached under ``_build/`` by a hash of
+the sources and the flags, by one nvcc run.  Nothing here runs at import
+time: the CPU tests import every module on a machine with neither nvcc nor a
+card.
 
 Flags pin the numerics the kernels promise: no fast-math, IEEE division and
 square root, no flush-to-zero, no FMA contraction.
@@ -24,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCE = CSRC / "quant.cu"
+SOURCES = (CSRC / "quant.cu", CSRC / "prune.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -33,11 +34,17 @@ NVCC_FLAGS = ARCH_FLAGS + (
 )
 
 # C entry points: name -> argtypes (pointers and the stream as c_void_p)
-_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_P, _I64, _I32, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+_NM = (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _P)
+_WANDA = (_P,) * 8 + (_I64, _I64, _I32, _F, _F, _F, _F, _P)
 SIGNATURES = {
     "repro_quant_dequant_2d": (_P, _P, _P, _I64, _I32, _P),
     "repro_quant_pack_2d": (_P, _P, _P, _P, _I64, _I32, _P),
     "repro_unpack_dequant_2d": (_P, _P, _P, _I64, _P),
+    "repro_nm_prune_2d_f32": _NM,
+    "repro_nm_prune_2d_bf16": _NM,
+    "repro_wanda_prune_2d_f32": _WANDA,
+    "repro_wanda_prune_2d_bf16": _WANDA,
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -63,14 +70,17 @@ def nvcc_path() -> str:
 
 
 def library_path() -> Path:
-    """Where the library lives: named by a hash of source + flags."""
-    h = hashlib.sha256(SOURCE.read_bytes())
+    """Where the library lives: named by a hash of the sources + flags."""
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{SOURCE.stem}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"librepro_kernels-{h.hexdigest()[:16]}.so"
 
 
 def nvcc_command(out: Path, nvcc: str = "nvcc") -> list:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), str(SOURCE)]
+    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, SOURCES)]
 
 
 def build() -> Path:
@@ -90,7 +100,7 @@ def build() -> Path:
     BUILD_LOG = proc.stdout
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise KernelBuildError(f"nvcc failed for {SOURCE.name} "
+        raise KernelBuildError(f"nvcc failed for {', '.join(s.name for s in SOURCES)} "
                                f"(rc {proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, path)    # atomic: concurrent builds agree
     return path

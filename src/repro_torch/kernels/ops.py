@@ -1,19 +1,29 @@
-"""Public wrappers around the quantization kernels (port of
-``repro/kernels/ops.py:59-133``).
+"""Public wrappers around the kernels (port of ``repro/kernels/ops.py``).
 
-They pad a flat tensor to whole ``(TILE_ROWS, QBLOCK)`` tiles and supply the
-stochastic-rounding noise, then call B1/B2/B3.  The noise is either passed
+Quantization (B1/B2/B3): pad a flat tensor to whole ``(TILE_ROWS, QBLOCK)``
+tiles and supply the stochastic-rounding noise.  The noise is either passed
 in (``noise=``, shape ``(rows_pad, QBLOCK)``, f32 in [0, 1) — how the tests
 inject the JAX package's draw) or drawn from an explicit ``generator``.
+
+Pruning (B7/B8): ``prune_nm`` is the N:M backend of
+``core/symwanda.mask_nm`` and ``prune_scored`` the fused backend of
+``core/symwanda.prune``.  They pad a (d_in, d_out) weight to whole 128 x 128
+tiles and compute the cheap statistics the kernels take (input norms,
+per-output thresholds, RIA sums, symwanda normalizers) with torch, as the
+JAX package computes them outside its Pallas kernels.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import bitpack as _bp
+from repro_torch.kernels import nm_prune as _nm
 from repro_torch.kernels import quant8 as _q8
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import wanda_score as _ws
 
 
 def tile_rows(d: int) -> int:
@@ -88,3 +98,87 @@ def nibble_unpack(packed: torch.Tensor, n: int) -> torch.Tensor:
     lo = (packed & 0xF).to(torch.int32) - 8
     hi = ((packed >> 4) & 0xF).to(torch.int32) - 8
     return torch.stack([lo, hi], dim=1).reshape(-1)[:n].to(torch.int8)
+
+
+# ---------------------------------------------------------------------------
+# N:M prune (B7) and fused wanda/ria/symwanda prune (B8)
+# ---------------------------------------------------------------------------
+def _pad2d(a: torch.Tensor, tr: int, tc: int, fill: float = 0.0):
+    """-> (a padded with ``fill`` to whole (tr, tc) tiles, rows, cols); ``a``
+    itself, made contiguous, when it already fills whole tiles."""
+    r, c = a.shape
+    rp, cp = -(-r // tr) * tr, -(-c // tc) * tc
+    if (rp, cp) == (r, c):
+        return a.contiguous(), r, c
+    out = a.new_full((rp, cp), fill)
+    out[:r, :c] = a
+    return out, r, c
+
+
+def _pad1d(v: torch.Tensor, n: int, fill: float) -> torch.Tensor:
+    v = v.float().contiguous()
+    if v.numel() == n:
+        return v
+    out = v.new_full((n,), fill)
+    out[:v.numel()] = v
+    return out
+
+
+def prune_nm(w: torch.Tensor, scores: torch.Tensor, n: int = 2, m: int = 4):
+    """(d_in, d_out) N:M prune by score; returns (pruned, mask) in w's dtype."""
+    wp, r, c = _pad2d(w, _nm.TILE_R, _nm.TILE_C)
+    # padded score rows must never win: fill with -inf
+    sp, _, _ = _pad2d(scores.float(), _nm.TILE_R, _nm.TILE_C, fill=-math.inf)
+    out, mask = _nm.nm_prune_2d(wp, sp, n=n, m=m)
+    return out[:r, :c], mask[:r, :c]
+
+
+def input_norms(X: torch.Tensor) -> torch.Tensor:
+    """Per-input-channel l2 norms of calibration activations (T, d_in) in f32."""
+    return X.float().square().sum(0).sqrt()
+
+
+def scored_args(w: torch.Tensor, X: torch.Tensor, mode: str = "wanda",
+                sparsity: float = 0.5, alpha: float = 0.5, beta: float = 0.5):
+    """The statistics and per-output thresholds of a fused prune ->
+    (padded w, keyword arguments of ``wanda_prune_2d``, (rows, cols)).
+
+    ``tau_j`` is the k-th largest score of column j, k = round((1 -
+    sparsity) d_in), from the plain version's score (the kernel recomputes
+    the same bits).  Padding: xnorm 0, tau +inf, RIA sums 1, ynorm 0."""
+    d_in, d_out = w.shape
+    xnorm = input_norms(X)
+    kw = dict(mode=mode, alpha=alpha, beta=beta)
+    if mode == "ria":
+        aw = w.float().abs()
+        kw.update(rowsum=aw.sum(1), colsum=aw.sum(0))
+    elif mode == "symwanda":
+        ynorm = input_norms(X @ w)
+        aw = w.float().abs()
+        kw.update(ynorm=ynorm, mu_in=float((aw * xnorm[:, None]).mean()),
+                  mu_out=float((aw * ynorm[None, :]).mean()))
+    elif mode != "wanda":
+        raise ValueError(mode)
+    scores = _ref.wanda_scores_ref(w, xnorm, **kw)
+    k = max(1, int(round((1 - sparsity) * d_in)))
+    tau = torch.topk(scores.T, k).values[:, -1]          # per output column
+    del scores
+
+    wp, r, c = _pad2d(w, _ws.TILE_R, _ws.TILE_C)
+    rp, cp = wp.shape
+    kw.update(xnorm=_pad1d(xnorm, rp, 0.0), tau=_pad1d(tau, cp, math.inf))
+    if mode == "ria":
+        kw.update(rowsum=_pad1d(kw["rowsum"], rp, 1.0), colsum=_pad1d(kw["colsum"], cp, 1.0))
+    elif mode == "symwanda":
+        kw.update(ynorm=_pad1d(kw["ynorm"], cp, 0.0))
+    return wp, kw, (r, c)
+
+
+def prune_scored(w: torch.Tensor, X: torch.Tensor, mode: str = "wanda",
+                 sparsity: float = 0.5, alpha: float = 0.5, beta: float = 0.5):
+    """Fused score+mask prune of w (d_in, d_out) with calibration X (T, d_in):
+    keep the top (1 - sparsity) of every output column.  Returns (pruned,
+    mask) in w's dtype."""
+    wp, kw, (r, c) = scored_args(w, X, mode, sparsity, alpha, beta)
+    out, mask = _ws.wanda_prune_2d(wp, **kw)
+    return out[:r, :c], mask[:r, :c]

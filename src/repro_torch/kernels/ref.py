@@ -1,7 +1,8 @@
-"""Plain PyTorch versions of kernels B1-B3 (the kernels' oracles).
+"""Plain PyTorch versions of kernels B1-B3, B7 and B8 (the kernels' oracles).
 
-The wrappers in ``quant8``/``bitpack`` take these for tensors on the CPU;
-the CUDA kernels are held to them bit for bit on the card.
+The wrappers in ``quant8``/``bitpack``/``nm_prune``/``wanda_score`` take
+these for tensors on the CPU; the CUDA kernels are held to them bit for bit
+on the card.
 
 Scale rule: ``scale = absmax * f32(1/s)`` — a multiply by the f32-rounded
 reciprocal, which is what the JAX package's Pallas kernels compute (XLA
@@ -55,3 +56,62 @@ def unpack_dequant_ref(q2d: torch.Tensor, scales: torch.Tensor,
                        out_dtype=torch.float32) -> torch.Tensor:
     """B3: ``q * scale`` back to dense."""
     return q2d.float().mul_(scales).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# B7/B8: pruning (port of repro/kernels/ref.py:66-100)
+# ---------------------------------------------------------------------------
+def nm_prune_ref(w: torch.Tensor, scores: torch.Tensor, n: int = 2, m: int = 4):
+    """B7: keep the n best scores of every group of m along d_in.
+
+    ``rank_i = #{k: s_k > s_i} + #{k < i: s_k == s_i}`` (compare-count with a
+    first-index tie-break, so exactly n survive even among equal scores);
+    returns ``(w * keep, keep)`` with ``keep`` in ``w``'s dtype."""
+    d_in, d_out = w.shape
+    g = scores.float().reshape(d_in // m, m, d_out)
+    gi, gk = g[:, :, None, :], g[:, None, :, :]          # element i vs k
+    idx = torch.arange(m, device=w.device)
+    earlier = (idx[None, :] < idx[:, None])[None, :, :, None]   # k < i
+    rank = (gk > gi).sum(2) + ((gk == gi) & earlier).sum(2)
+    keep = (rank < n).to(w.dtype).reshape(d_in, d_out)
+    return w * keep, keep
+
+
+def _as_divisor(v, like: torch.Tensor) -> torch.Tensor:
+    """A scalar normalizer as a (1, 1) f32 tensor on ``like``'s device: a
+    tensor divisor is divided elementwise on every device (a Python scalar
+    may become a multiply by its reciprocal on the card)."""
+    return torch.as_tensor(v, dtype=torch.float32, device=like.device).reshape(1, 1)
+
+
+def wanda_scores_ref(w, xnorm, mode="wanda", alpha=0.5, beta=0.5, rowsum=None,
+                     colsum=None, ynorm=None, mu_in=1.0, mu_out=1.0):
+    """The B8 score of every weight, in the Pallas kernel's order:
+
+      wanda     |w| * xn
+      ria       (|w| / rowsum + |w| / colsum) * xn^alpha
+      symwanda  ((beta |w|) xn) / mu_in + (((1 - beta) |w|) yn) / mu_out
+
+    RIA's sums default to those of ``w`` (``repro/kernels/ref.py``'s form);
+    ``ops.prune_scored`` passes them, padded."""
+    aw = w.float().abs()
+    if mode == "wanda":
+        return aw * xnorm[:, None]
+    if mode == "ria":
+        rowsum = aw.sum(1) if rowsum is None else rowsum
+        colsum = aw.sum(0) if colsum is None else colsum
+        return (aw / rowsum[:, None] + aw / colsum[None, :]) * xnorm.pow(alpha)[:, None]
+    if mode == "symwanda":
+        return (beta * aw * xnorm[:, None] / _as_divisor(mu_in, aw)
+                + (1.0 - beta) * aw * ynorm[None, :] / _as_divisor(mu_out, aw))
+    raise ValueError(mode)
+
+
+def wanda_prune_ref(w, xnorm, tau, mode="wanda", alpha=0.5, beta=0.5, rowsum=None,
+                    colsum=None, ynorm=None, mu_in=1.0, mu_out=1.0):
+    """B8: keep ``s_ij >= tau_j``; returns ``(w * keep, keep)``, ``keep`` in
+    ``w``'s dtype (a product, not a select: ``-w * 0`` is ``-0.0``)."""
+    s = wanda_scores_ref(w, xnorm, mode, alpha, beta, rowsum, colsum, ynorm,
+                         mu_in, mu_out)
+    keep = (s >= tau[None, :]).to(w.dtype)
+    return w * keep, keep

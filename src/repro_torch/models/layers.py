@@ -105,3 +105,19 @@ def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
     if "unembed" in params:
         return x @ params["unembed"]
     return x @ params["tok"].T
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor, ignore: int = -1,
+                       valid_vocab: Optional[int] = None) -> torch.Tensor:
+    """Mean next-token CE in f32.  logits (..., V), targets (...,) int;
+    ``valid_vocab`` masks padded vocab rows out of the partition function."""
+    logits = logits.float()
+    if valid_vocab is not None and valid_vocab < logits.shape[-1]:
+        dead = torch.arange(logits.shape[-1], device=logits.device) >= valid_vocab
+        logits = logits.masked_fill(dead, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    mask = (targets != ignore).float()
+    # an ignored target may be out of range: gather at 0, masked out below
+    idx = torch.where(targets != ignore, targets, torch.zeros_like(targets))
+    gold = logits.gather(-1, idx[..., None].long())[..., 0]
+    return ((logz - gold) * mask).sum() / mask.sum().clamp_min(1.0)

@@ -1,14 +1,15 @@
-"""Dense decoder stack: init, prefill, decode (port of
-``repro/models/transformer.py:43-143, 325-489``).
+"""Dense decoder stack: init, full-sequence forward, prefill, decode (port
+of ``repro/models/transformer.py:43-143, 280-322, 325-489``).
 
 The layer schedule is tiled from a period of length P; the params of each
 position-in-period are stacked over the ``num_layers / P`` periods under
 ``blocks/pos{j}``, exactly the JAX package's tree, so the two flatten to the
 same delta block space.  Where JAX scans over periods, the port loops.
 
-This slice serves decoder-only attention models.  MoE, Mamba and
-encoder-decoder / vision configs raise ``NotImplementedError``: they are
-ROADMAP Queue 1, item 8 (other architectures).
+The port runs decoder-only attention models, forward only (no backward).
+MoE, Mamba and encoder-decoder / vision configs raise
+``NotImplementedError``: they are ROADMAP Queue 1, item 4 (other
+architectures).
 """
 from __future__ import annotations
 
@@ -18,8 +19,9 @@ import torch
 
 from repro_torch.configs.base import MAMBA, ModelConfig
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.layers import (embed, init_embed, init_mlp,
-                                       init_rmsnorm, mlp, rmsnorm, unembed)
+from repro_torch.models.layers import (cross_entropy_loss, embed, init_embed,
+                                       init_mlp, init_rmsnorm, mlp, rmsnorm,
+                                       unembed)
 from repro_torch.utils.device import make_generator, resolve_device
 from repro_torch.utils.tree import tree_map
 
@@ -54,7 +56,7 @@ def require_supported(cfg: ModelConfig) -> None:
     if what:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(what)} layers are not ported yet "
-            f"(ROADMAP.md Queue 1, item 8: other architectures)")
+            f"(ROADMAP.md Queue 1, item 4: other architectures)")
 
 
 def _attn_cfg(cfg: ModelConfig, kind: str) -> dict:
@@ -136,32 +138,59 @@ def _ring_from_prefill(kv: dict, cfg_attn: dict, S: int, cache_len: int) -> dict
     return {"k": ring(kv["k"]), "v": ring(kv["v"])}
 
 
-def prefill(params, cfg: ModelConfig, batch: dict, cache_len: int = 0):
-    """Full-prompt forward -> (last-position logits (B, 1, V_pad), cache).
-
-    ``batch["tokens"]`` is (B, S) int; the cache holds ``{"layers": ...,
-    "pos": S}`` with ``pos`` a Python int."""
+def _trunk(params, cfg: ModelConfig, tokens: torch.Tensor, on_kv=None) -> torch.Tensor:
+    """Embed ``tokens`` (B, S) and run every block over the whole sequence
+    -> final-normed hidden states (B, S, D).  ``on_kv(j, cfg_attn, kv)``
+    receives each attention layer's full K/V, in layer order."""
     require_supported(cfg)
     P, n_periods, pos_kinds, _ = period_info(cfg)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    cache_len = max(cache_len, S + 1)
     x = embed(params["embed"], tokens)
-    caches = {f"pos{j}": {"k": [], "v": []} for j in range(P)}
     for i in range(n_periods):
         bps = _period(params["blocks"], i)
         for j in range(P):
             bp, acfg = bps[f"pos{j}"], _attn_cfg(cfg, pos_kinds[j])
             h, kv = attn_lib.attention_prefill(bp["attn"], rmsnorm(bp["norm1"], x, cfg.norm_eps),
                                                cfg_attn=acfg)
-            ring = _ring_from_prefill(kv, acfg, S, cache_len)
-            caches[f"pos{j}"]["k"].append(ring["k"])
-            caches[f"pos{j}"]["v"].append(ring["v"])
+            if on_kv is not None:
+                on_kv(j, acfg, kv)
             x = x + h
             if cfg.d_ff > 0:
                 x = x + mlp(bp["mlp"], rmsnorm(bp["norm2"], x, cfg.norm_eps),
                             act=cfg.mlp_act, gated=cfg.mlp_gated)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def forward_train(params, cfg: ModelConfig, batch: dict):
+    """Full-sequence forward -> (logits (B, S, V_pad) at every position,
+    aux loss 0).  Forward only: nothing here needs a backward yet."""
+    x = _trunk(params, cfg, batch["tokens"])
+    return unembed(params["embed"], x), torch.zeros((), device=x.device)
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict):
+    """-> (loss, {"ce", "aux"}): mean next-token CE over the valid vocab."""
+    logits, aux = forward_train(params, cfg, batch)
+    ce = cross_entropy_loss(logits, batch["targets"], valid_vocab=cfg.vocab_size)
+    return ce, {"ce": ce, "aux": aux}
+
+
+def prefill(params, cfg: ModelConfig, batch: dict, cache_len: int = 0):
+    """Full-prompt forward -> (last-position logits (B, 1, V_pad), cache).
+
+    ``batch["tokens"]`` is (B, S) int; the cache holds ``{"layers": ...,
+    "pos": S}`` with ``pos`` a Python int."""
+    P = period_info(cfg)[0]
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    cache_len = max(cache_len, S + 1)
+    caches = {f"pos{j}": {"k": [], "v": []} for j in range(P)}
+
+    def keep(j, acfg, kv):
+        ring = _ring_from_prefill(kv, acfg, S, cache_len)
+        caches[f"pos{j}"]["k"].append(ring["k"])
+        caches[f"pos{j}"]["v"].append(ring["v"])
+
+    x = _trunk(params, cfg, tokens, on_kv=keep)
     logits = unembed(params["embed"], x[:, -1:])
     layers = {name: {k: torch.stack(v) for k, v in c.items()} for name, c in caches.items()}
     return logits, {"layers": layers, "pos": int(S)}
