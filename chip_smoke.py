@@ -7,10 +7,12 @@ Phases, each printed on its own ``[phase]`` line; any failure raises and
 the script exits nonzero without printing a result:
 
   device   the card's name and power limit (nvidia-smi); no card -> exit 1
-  build    nvcc builds kernels B1-B3 and B7/B8 from src/repro_torch/kernels/csrc/
-  kernels  B1-B3 against their plain PyTorch versions on the card, bit for
-           bit: a ragged tensor with zero rows (bits 8 and 4) and a 2^26-
-           element slice of the main path's shape
+  build    nvcc builds kernels B1-B8 from src/repro_torch/kernels/csrc/
+  kernels  B1-B6 against their plain PyTorch versions on the card, bit for
+           bit: B1-B3 on a ragged tensor with zero rows (bits 8 and 4) and a
+           2^26-element slice of the main path's shape; B4/B5 (pack_bits /
+           unpack_bits) and B6 (stream_quantize_pack, with zero rows) at
+           ragged d in {1, 31, 33, 4097, 5*512+37}
   serve    the main path at the full width of h2o-danube-1.8b (bf16, random
            weights from a seed): a DeltaStore with the qsgd_kernel
            compressor stores two users (each put runs B2 and B1 and passes
@@ -29,10 +31,25 @@ the script exits nonzero without printing a result:
            for bit equal to their plain versions on the same tau / scores,
            the B8 wanda mask equal to core.symwanda.prune's, and every B7
            disagreement with mask_nm inside a group of tied scores
-  timing   B1-B3 at the serve path's shape and B7/B8 at one full-width
-           w_in (2560 x 6912 bf16) on the card (CUDA events, medians or
-           queued runs), beside the plain versions, the byte bound and B3's
-           torch.mul yardstick
+  codec    the third path: the wire codecs at the full width of the delta
+           space (1,831,202,816 coordinates).  (a) A DeltaStore with top_k
+           (1%) on the sparse_bitmap wire stores two norm-only users (B4 per
+           put, B5 in each certificate) and a BlockPool pages them in (B5):
+           resident blocks equal the store's nonzero decoded blocks bit for
+           bit, serve/page_in bytes equal the payload bytes, and each payload
+           is 4 B per mask word plus 4 B per value.  (b) A full-model update
+           (every leaf perturbed) is streamed with encode_stream at
+           DEFAULT_TILE under top_k + sparse_bitmap, topk_block (1%, 2048) +
+           sparse_block and qsgd_kernel (B2 encode, B3 decode), each recorded
+           with CommLedger.record_stream: decode_stream == decode == the
+           compressor's carrier, chunk records sum to nbytes and the chunks
+           tile [0, d).  (c) B6 (ops.stream_quantize_pack) at full width.
+           B4, B5 and B6 must have launched.  Then, not counted: B4/B5 and
+           B6 against their plain versions at full width, and B6 == B2
+  timing   B1-B3 and B6 (beside B2) at the serve path's shape, B4/B5 at the
+           codec path's d, and B7/B8 at one full-width w_in (2560 x 6912
+           bf16) on the card (CUDA events, medians or queued runs), beside
+           the plain versions, the byte bound and B3's torch.mul yardstick
 
 The last three lines are the kernels JSON, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -72,6 +89,16 @@ PRUNE_INFO = (
     ("B8", "wanda_prune_2d", "src/repro/kernels/wanda_score.py:60"),
 )
 PRUNE_SOURCE = "src/repro_torch/kernels/csrc/prune.cu"
+# id, wrapper name, TPU kernel replaced, source, integer or f32 operations
+# per coordinate (B4/B5: compare or shift, mask, or / store)
+CODEC_INFO = (
+    ("B4", "pack_mask_2d", "src/repro/kernels/bitpack.py:53",
+     "src/repro_torch/kernels/csrc/bitmask.cu", 3),
+    ("B5", "unpack_mask_2d", "src/repro/kernels/bitpack.py:68",
+     "src/repro_torch/kernels/csrc/bitmask.cu", 3),
+    ("B6", "stream_quant_pack_2d", "src/repro/kernels/stream.py:110", KERNEL_SOURCE, 7),
+)
+RAGGED_D = (1, 31, 33, 4097, 5 * 512 + 37)
 
 
 class SmokeFailure(RuntimeError):
@@ -174,6 +201,53 @@ def phase_kernels(device):
     compare_kernels(x2, u2, 8)
     log("kernels", f"B1-B3 == plain bit for bit: ragged d={d} (bits 8, 4), "
                    f"slice {rows}x512 (bits 8)")
+    for d in RAGGED_D:
+        compare_mask_kernels(torch.rand(d, generator=g, device=device) < 0.3)
+        x = torch.randn(d, generator=g, device=device) * 3.0
+        x[:min(d, 512)] = 0.0                                 # a zero row
+        u = torch.rand((ops.tile_rows(d), 512), generator=g, device=device)
+        compare_stream_kernel(*ops._quant_tiles(x, u)[:2])
+    log("kernels", f"B4/B5 and B6 == plain bit for bit (B6 == B2): ragged d in {RAGGED_D}")
+
+
+def compare_mask_kernels(mask):
+    """B4 (ops.pack_bits) and B5 (ops.unpack_bits) on a flat bool mask
+    against their plain versions; raise unless bitwise equal.  Returns
+    {name: max_abs_err}."""
+    from repro_torch.kernels import ops, ref
+    d = mask.numel()
+    w = ops.pack_bits(mask)
+    W = w.numel()
+    wp = ref.pack_mask_ref(padded_mask(mask, 32 * W).view(32, W)).reshape(-1)
+    require(bits_equal(w, wp), f"B4 != plain (d={d})")
+    back = ops.unpack_bits(w, d)
+    want = ref.unpack_mask_ref(w.view(1, W)).reshape(-1)[:d]
+    require(bits_equal(back, want), f"B5 != plain (d={d})")
+    require(bits_equal(back, mask.to(back.dtype)), f"B5(B4(mask)) != mask (d={d})")
+    return {"pack_mask_2d": max_abs_err(w, wp), "unpack_mask_2d": max_abs_err(back, want)}
+
+
+def compare_stream_kernel(x2d, u2d):
+    """B6 on (rows, 512) inputs against its plain version and against B2;
+    raise unless bitwise equal.  Returns {name: max_abs_err}."""
+    from repro_torch.kernels import bitpack, ref, stream
+    q, s = stream.stream_quant_pack_2d(x2d, u2d)
+    qw, sw = ref.stream_quant_pack_ref(x2d, u2d, tile_rows=1 << 17)
+    require(bits_equal(q, qw) and bits_equal(s, sw), f"B6 != plain ({x2d.shape[0]} rows)")
+    err = max(max_abs_err(q, qw), max_abs_err(s, sw))
+    del qw, sw
+    q2, s2 = bitpack.quant_pack_2d(x2d, u2d)
+    require(bits_equal(q, q2) and bits_equal(s, s2), f"B6 != B2 ({x2d.shape[0]} rows)")
+    return {"stream_quant_pack_2d": err}
+
+
+def padded_mask(mask, n):
+    """``mask`` zero-padded to ``n`` entries (itself when it has n)."""
+    if mask.numel() == n:
+        return mask
+    out = mask.new_zeros(n)
+    out[:mask.numel()] = mask
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -282,7 +356,8 @@ def breakdown(cfg, store, pool, engine, device):
 
 
 def phase_serve(cfg, device):
-    """The main path.  Returns (launch counts, rows of the quantized delta)."""
+    """The main path.  Returns (launch counts, rows of the quantized delta,
+    one user's payload bytes)."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -384,11 +459,12 @@ def phase_serve(cfg, device):
             f"{k} {p / 2**30:.2f}/{a / 2**30:.2f}" for k, p, a in mem.marks)
             + f"; overall peak {max(p for _, p, _ in mem.marks) / 2**30:.2f}")
     log("serve", "kernels " + json.dumps(counts))
+    payload_bytes = store.nbytes(USERS[0])
     del b, pool, store, eff_by_uid
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    return counts, rows
+    return counts, rows, payload_bytes
 
 
 def phase_ref(device):
@@ -507,6 +583,175 @@ def phase_prune(cfg, device):
 
 
 # ---------------------------------------------------------------------------
+def timed(device, fn):
+    """(fn(), host seconds) around synchronized work."""
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return out, time.perf_counter() - t0
+
+
+def phase_codec(cfg, device, serve_payload_bytes):
+    """The codec path at full width.  Returns (launch counts of the path, the
+    delta space's d).  ``serve_payload_bytes`` (the serve phase's
+    qsgd_kernel payload of one user) is printed beside the bitmap payloads."""
+    import dataclasses
+    import torch
+    from repro_torch import kernels
+    from repro_torch.comm import codecs
+    from repro_torch.comm.buckets import bucketize
+    from repro_torch.comm.ledger import PAGE_IN_TAG, CommLedger
+    from repro_torch.core.compressors import WireSpec, make_compressor
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.serve import BlockPool, DeltaStore, personalize_leaves
+    from repro_torch.utils.device import fold_seed, make_generator
+
+    on_card = device.type == "cuda"
+    mem = MemMarks(device)
+    t_phase = time.perf_counter()
+    path = {name: 0 for name in kernels.KERNELS}
+
+    def tally():
+        """Add the launches since the last reset to the path's counts."""
+        for k, v in kernels.launch_counts().items():
+            path[k] += v
+        kernels.reset_launch_counts()
+
+    params = init_params(0, cfg, device=device)
+    mem.mark("init")
+
+    # -- (a) store and pager on the bitmap wire (B4 per put, B5 in each
+    #    certificate and page-in)
+    bitmap = dataclasses.replace(make_compressor("top_k", k_frac=0.01),
+                                 wire=WireSpec("sparse_bitmap"))
+    kernels.reset_launch_counts()
+    store = DeltaStore(params, bitmap, seed=7)
+    d = store.layout.padded_d
+    put_s = []
+    for uid in USERS:
+        pers = personalize_leaves(params, fold_seed(1, uid), match=("norm",))
+        put_s.append(timed(device, lambda: store.put(uid, pers))[1])
+        del pers
+    tally()
+    mem.mark("puts")
+    oracle = {}                                    # not counted: decoded blocks
+    for uid in USERS:
+        blocks = store.blocks(uid)
+        nz = torch.nonzero(blocks.ne(0).any(dim=1)).reshape(-1)
+        oracle[uid] = (nz, blocks.index_select(0, nz))
+        del blocks
+    kernels.reset_launch_counts()
+    pool = BlockPool(store, capacity_blocks=sum(int(nz.numel()) for nz, _ in oracle.values()))
+    page_s = []
+    for uid in USERS:
+        entry, sec = timed(device, lambda: pool.acquire(uid))
+        page_s.append(sec)
+        nz, want = oracle[uid]
+        require(entry.n_blocks == nz.numel() and int(entry.table.ne(0).sum()) == nz.numel(),
+                f"user {uid}: {entry.n_blocks} resident blocks, {nz.numel()} nonzero")
+        require(bits_equal(pool.blocks.index_select(0, entry.table[nz].long()), want),
+                f"user {uid}: resident blocks != store.blocks' nonzero blocks")
+        pool.release(uid)
+    tally()
+    mem.mark("pager")
+    n_words = -(-d // 32)
+    for uid in USERS:
+        p = store.payload(uid)
+        require(p.scheme == "sparse_bitmap" and p.planes["mask_words"].size == n_words
+                and p.nbytes == 4 * n_words + 4 * p.planes["values"].size,
+                f"user {uid}: payload {p.nbytes} B != 4 * {n_words} + 4 * nnz")
+    page_in = store.ledger.bytes_by_tag().get(PAGE_IN_TAG, 0)
+    require(page_in == store.total_payload_bytes() == pool.bytes_paged_in,
+            f"serve/page_in {page_in} != payload bytes {store.total_payload_bytes()}")
+    log("codec", f"(a) d={d}: {store.layout.n_buckets} blocks, {n_words} mask words; "
+                 f"bitmap payloads {[store.nbytes(u) for u in USERS]} B (nnz "
+                 f"{[store.payload(u).planes['values'].size for u in USERS]}) beside the "
+                 f"serve phase's qsgd_kernel payload of {serve_payload_bytes} B; puts "
+                 f"{[round(t, 3) for t in put_s]} s, page-ins {[round(t, 3) for t in page_s]} s; "
+                 f"resident blocks {[int(nz.numel()) for nz, _ in oracle.values()]} bitwise == "
+                 f"store.blocks; serve/page_in {page_in} B == payload bytes")
+
+    # -- (b) streamed uplink of a full-model update, every leaf perturbed
+    pers = personalize_leaves(params, fold_seed(2, 0), match=("",))
+    x = bucketize(pers, store.layout.bucket_size)[0].sub_(store.base_blocks).reshape(-1)
+    del pers, params, store, pool, oracle
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    mem.mark("x")
+    k = max(1, int(round(0.01 * d)))
+    topk_s = timed(device, lambda: torch.topk(x.abs(), k).values[-1])[1]
+    mem.mark("topk")
+    tally()
+    ledger = CommLedger()
+    u = None
+    streams = (("top_k(0.01) + sparse_bitmap", ("top_k", {"k_frac": 0.01}), "sparse_bitmap"),
+               ("topk_block(0.01, 2048) + sparse_block",
+                ("topk_block", {"k_frac": 0.01, "block": 2048}), None),
+               ("qsgd_kernel(8) + quant", ("qsgd_kernel", {"bits": 8}), None))
+    for i, (label, (name, kw), scheme) in enumerate(streams):
+        comp = make_compressor(name, **kw)
+        if name == "qsgd_kernel":
+            u = torch.rand((ops.tile_rows(d), 512), device=device,
+                           generator=make_generator(fold_seed(3, 0), device))
+        sec = {}
+        sp, sec["encode_stream"] = timed(device, lambda: codecs.encode_stream(
+            comp, x, scheme=scheme, noise=u))
+        recs = ledger.record_stream(i, "leaf->agg", sp)
+        require(sum(r.nbytes for r in recs) == sp.nbytes and len(recs) == sp.n_chunks
+                == -(-d // codecs.DEFAULT_TILE), f"{label}: chunk records != nbytes")
+        require(sp.chunks[0].start == 0 and sp.chunks[-1].stop == d and all(
+            a.stop == b.start for a, b in zip(sp.chunks, sp.chunks[1:])),
+            f"{label}: chunks do not tile [0, d)")
+        p, sec["encode"] = timed(device, lambda: codecs.encode(comp, x, noise=u, scheme=scheme))
+        require(p.nbytes == sp.nbytes, f"{label}: stream {sp.nbytes} B != payload {p.nbytes} B")
+        y, sec["carrier"] = timed(device, lambda: comp(x, noise=u))
+        out, sec["decode_stream"] = timed(device, lambda: codecs.decode_stream(sp, device))
+        require(bool((out == y).all()), f"{label}: decode_stream != carrier")
+        del out
+        out, sec["decode"] = timed(device, lambda: codecs.decode(p, device))
+        require(bool((out == y).all()), f"{label}: decode != carrier")
+        del out
+        tally()
+        if scheme == "sparse_bitmap":             # not counted: B4/B5 vs plain
+            compare_mask_kernels(y != 0)
+            kernels.reset_launch_counts()
+        kept = int(torch.count_nonzero(y))
+        del y, sp, p
+        mem.mark(f"stream {i}")
+        log("codec", f"(b) {label}: {ledger.bytes_by_round()[i]} B in {len(recs)} chunks "
+                     f"(== nbytes), {kept} kept; seconds " + ", ".join(
+                         f"{k2} {v:.3f}" for k2, v in sec.items()))
+
+    # -- (c) B6 at full width
+    (q, s), b6_s = timed(device, lambda: ops.stream_quantize_pack(x, noise=u))
+    tally()
+    mem.mark("B6")
+    x2d = x.view(-1, 512)                        # not counted: B6 vs plain, B6 == B2
+    compare_stream_kernel(x2d, u)
+    q2, s2 = ops.quantize_pack(x, noise=u)
+    require(bits_equal(q, q2) and bits_equal(s, s2), "B6 != B2 at full width")
+    kernels.reset_launch_counts()
+    log("codec", f"(c) B6 stream_quantize_pack {tuple(q.shape)} in {b6_s:.3f} s == B2 "
+                 f"quantize_pack bit for bit; B4/B5 at d={d} and B6 == plain bit for bit")
+    del x, x2d, u, q, s, q2, s2
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        log("codec", "memory GiB (peak during / allocated after): " + ", ".join(
+            f"{k2} {pk / 2**30:.2f}/{a / 2**30:.2f}" for k2, pk, a in mem.marks)
+            + f"; overall peak {max(pk for _, pk, _ in mem.marks) / 2**30:.2f}")
+    log("codec", f"torch.topk(|x|, k={k}) over d={d}: {topk_s:.3f} s; phase "
+                 f"{time.perf_counter() - t_phase:.2f} s; kernels {json.dumps(path)}")
+    return path, d
+
+
+# ---------------------------------------------------------------------------
 def cuda_ms(fn, reps=5, warmup=1):
     """Median of ``reps`` CUDA-event timings of ``fn()``, after ``warmup``."""
     import torch
@@ -524,10 +769,11 @@ def cuda_ms(fn, reps=5, warmup=1):
     return statistics.median(times)
 
 
-def phase_timing(rows, device, counts):
-    """B1-B3 at the main path's (rows, 512) shape: bitwise check, then times."""
+def phase_timing(rows, device, launches):
+    """B1-B3 and B6 at the main path's (rows, 512) shape: bitwise check, then
+    times (B6 timed between two timings of B2 on the same inputs)."""
     import torch
-    from repro_torch.kernels import bitpack, quant8, ref
+    from repro_torch.kernels import bitpack, quant8, ref, stream
 
     n = rows * 512
     g = torch.Generator(device=device).manual_seed(13)
@@ -536,17 +782,22 @@ def phase_timing(rows, device, counts):
     u = torch.rand((rows, 512), generator=g, device=device)
     bytes_ = {"quant_dequant_2d": n * 12,
               "quant_pack_2d": n * 9 + rows * 4,
-              "unpack_dequant_2d": n * 5 + rows * 4}
+              "unpack_dequant_2d": n * 5 + rows * 4,
+              "stream_quant_pack_2d": n * 9 + rows * 4}
     calls = {
         "quant_dequant_2d": (lambda: quant8.quant_dequant_2d(x, u),
                              lambda: ref.quant_dequant_ref(x, u), None),
         "quant_pack_2d": (lambda: bitpack.quant_pack_2d(x, u),
                           lambda: ref.quant_pack_ref(x, u), None),
+        "stream_quant_pack_2d": (lambda: stream.stream_quant_pack_2d(x, u),
+                                 lambda: ref.stream_quant_pack_ref(x, u, tile_rows=1 << 17),
+                                 None),
     }
-    errs = compare_kernels(x, u, 8)
+    errs = {**compare_kernels(x, u, 8), **compare_stream_kernel(x, u)}
     results = {}
     for name, (kern, plain, lib) in calls.items():
         results[name] = (cuda_ms(kern), cuda_ms(plain, reps=3), None)
+    b2_again = cuda_ms(calls["quant_pack_2d"][0])
     q, s = bitpack.quant_pack_2d(x, u)
     del x, u
     gc.collect()
@@ -556,13 +807,16 @@ def phase_timing(rows, device, counts):
         cuda_ms(lambda: ref.unpack_dequant_ref(q, s), reps=3),
         cuda_ms(lambda: torch.mul(q, s)))
     del q, s
+    log("timing", f"B6 {results['stream_quant_pack_2d'][0]:.3f} ms between B2 "
+                  f"{results['quant_pack_2d'][0]:.3f} and {b2_again:.3f} ms on the same inputs")
     out = []
-    for kid, name, replaces, ops_per_elem in KERNEL_INFO:
+    info = KERNEL_INFO + (("B6", "stream_quant_pack_2d", CODEC_INFO[2][2], CODEC_INFO[2][4]),)
+    for kid, name, replaces, ops_per_elem in info:
         ms, plain_ms, lib_ms = results[name]
         t_bytes = 1e3 * bytes_[name] / HBM_BYTES_PER_S
         t_ops = 1e3 * ops_per_elem * n / F32_FLOPS
         entry = {"id": kid, "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-                 "replaces": replaces, "launches": counts[name],
+                 "replaces": replaces, "launches": launches[name],
                  "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": max(t_bytes, t_ops),
                  "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -573,6 +827,44 @@ def phase_timing(rows, device, counts):
                       f"{bytes_[name] / 1e9:.2f} GB), library "
                       f"{'n/a' if lib_ms is None else f'{lib_ms:.3f} ms'}, "
                       f"{100 * entry['bound_ms'] / ms:.1f}% of bound")
+    return out
+
+
+def phase_mask_timing(d, device, launches):
+    """B4 and B5 at the codec path's d: bitwise check, then times beside the
+    plain versions and the byte bound (1 B per coordinate of mask, 1/8 B of
+    words)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=device).manual_seed(17)
+    mask = torch.rand(d, generator=g, device=device) < 0.01
+    errs = compare_mask_kernels(mask)
+    W = -(-d // 32)
+    words = ops.pack_bits(mask)
+    m2d = padded_mask(mask, 32 * W).view(32, W)
+    times = {"pack_mask_2d": (cuda_ms(lambda: ops.pack_bits(mask)),
+                              cuda_ms(lambda: ref.pack_mask_ref(m2d), reps=3)),
+             "unpack_mask_2d": (cuda_ms(lambda: ops.unpack_bits(words, d)),
+                                cuda_ms(lambda: ref.unpack_mask_ref(words.view(1, W)), reps=3))}
+    del mask, m2d, words
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = []
+    for kid, name, replaces, source, ops_per_elem in CODEC_INFO[:2]:
+        ms, plain_ms = times[name]
+        nbytes = d + 4 * W
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        t_ops = 1e3 * ops_per_elem * d / F32_FLOPS
+        entry = {"id": kid, "name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches[name], "max_abs_err": errs[name],
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "library_ms": None}
+        out.append(entry)
+        log("timing", f"{kid} {name} (d={d}): {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                      f"{entry['bound_ms']:.3f} ms ({entry['bound_by']}, {nbytes / 1e9:.2f} GB), "
+                      f"library n/a, {100 * entry['bound_ms'] / ms:.1f}% of bound")
     return out
 
 
@@ -653,14 +945,20 @@ def main():
     from repro_torch.configs import get_config
     phase_build()
     phase_kernels(device)
-    counts, rows = phase_serve(get_config(ARCH), device)
+    counts, rows, serve_payload_bytes = phase_serve(get_config(ARCH), device)
     for kid, name, _, _ in KERNEL_INFO:
         require(counts[name] > 0, f"{kid} {name} was not launched on the main path")
     phase_ref(device)
     prune_counts, prune_errs, layer = phase_prune(get_config(ARCH), device)
     for kid, name, _ in PRUNE_INFO:
         require(prune_counts[name] > 0, f"{kid} {name} was not launched on the prune path")
-    kernels = phase_timing(rows, device, counts)
+    codec_counts, d = phase_codec(get_config(ARCH), device, serve_payload_bytes)
+    for kid, name, _, _, _ in CODEC_INFO:
+        require(codec_counts[name] > 0, f"{kid} {name} was not launched on the codec path")
+    # each kernel's launches on the path that exercises it
+    launches = {**counts, **{name: codec_counts[name] for _, name, _, _, _ in CODEC_INFO}}
+    kernels = phase_timing(rows, device, launches)
+    kernels += phase_mask_timing(d, device, launches)
     kernels += phase_prune_timing(layer, prune_counts, prune_errs)
     print(json.dumps({"kernels": kernels}))
     print(smi)

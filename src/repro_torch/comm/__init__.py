@@ -2,9 +2,13 @@
 from repro_torch.comm.buckets import (DEFAULT_BUCKET_SIZE, BucketLayout,
                                       bucketize, bucketize_groups,
                                       debucketize, debucketize_groups)
-from repro_torch.comm.codecs import (Payload, PayloadError, decode, encode,
-                                     seal_payload, validate_payload,
-                                     verify_payload)
+from repro_torch.comm.codecs import (DEFAULT_TILE, Chunk, Payload, PayloadError,
+                                     StreamPayload, analytic_bits, decode,
+                                     decode_stream, encode, encode_stream,
+                                     encoded_bits, extrapolate_bits,
+                                     roundtrip_equal, seal_payload,
+                                     split_payload, stream_roundtrip_equal,
+                                     validate_payload, verify_payload)
 from repro_torch.comm.ledger import (BROADCAST_TAG, PAGE_IN_TAG, PAGE_OUT_TAG,
                                      RETRY_TAG, UPLOAD_TAG, WIRE_SCHEME_TAGS,
                                      CommLedger, CommRecord, known_tags,

@@ -1,7 +1,8 @@
 """Byte-accurate communication ledger (the port's copy of
-``repro/comm/ledger.py``): one record per message on one link, the tag
-registry, and the per-round/link/kind/tag aggregates.  The topology-based
-round-time simulation and the HLO cross-check stay with the training slice.
+``repro/comm/ledger.py``): one record per message, or per streamed chunk, on
+one link, the tag registry, and the per-round/link/kind/tag aggregates.  The
+topology-based round-time simulation and the HLO cross-check come with the
+training path (ROADMAP, Queue 1).
 """
 from __future__ import annotations
 
@@ -59,6 +60,15 @@ class CommLedger:
                        tag: str = "") -> CommRecord:
         return self.record(round, link, payload.nbytes, kind=kind, phase=phase,
                            tag=tag or payload.scheme)
+
+    def record_stream(self, round: int, link: str, stream, kind: str = "inter",
+                      phase: int = 0, tag: str = "") -> List[CommRecord]:
+        """One record per chunk of a ``codecs.StreamPayload``; the chunk
+        records sum exactly to the whole payload's ``nbytes``."""
+        base = tag or stream.scheme
+        return [self.record(round, link, ch.nbytes, kind=kind, phase=phase,
+                            tag=base, chunk=ch.index)
+                for ch in stream.chunks]
 
     def merge(self, other: "CommLedger") -> "CommLedger":
         self.records.extend(other.records)

@@ -1,10 +1,10 @@
 """Compression operators (port of ``repro/core/compressors.py``).
 
-This slice ports the operators the serving plane uses — ``identity``,
-``top_k``, ``qsgd`` and ``qsgd_kernel`` — with ``WireSpec``, ``Compressor``
-and ``scale_compressor``.  The other registry entries (``rand_k``,
-``topk_block``, ``qsgd_sharded``, ``mix_k``, ``comp_k``) come with the
-training slice.
+Ported: ``identity``, ``top_k``, ``topk_block`` (the only producer of the
+``sparse_block`` wire), ``qsgd`` and ``qsgd_kernel``, with ``WireSpec``,
+``Compressor`` and ``scale_compressor``.  The other registry entries
+(``rand_k``, ``qsgd_sharded``, ``mix_k``, ``comp_k``) come with the training
+path (ROADMAP, Queue 1).
 
 Randomness: a compressor is called as ``c(x, noise=None, generator=None)``.
 A stochastic one takes its uniform draws from ``noise`` when given (how the
@@ -25,7 +25,9 @@ import torch.nn.functional as F
 class WireSpec:
     """How a compressor's output is packed on the wire (``comm.codecs``).
 
-    scheme: dense | sparse_idx32 | quant; block/bits: quantizer blocking;
+    scheme: dense | sparse_idx32 | sparse_block | sparse_bitmap | quant
+    (any sparsifier may opt into ``sparse_bitmap``, a 1-bit presence mask
+    packed by kernel B4); block/bits: quantizer or sparse-block blocking;
     axis: "flat", "last" or "kernel" (the B2 quantize-pack layout).
     ``gain`` is a post-scale applied by scale_compressor.
     """
@@ -52,6 +54,10 @@ class Compressor:
         if not self.flatten:
             return self.fn(x, noise, generator)
         return self.fn(x.reshape(-1), noise, generator).reshape(x.shape)
+
+    def payload_bits(self, d: int) -> float:
+        """The closed-form wire size the JAX package's seed modelled."""
+        return self.bits_per_dim * d
 
 
 def scale_compressor(c: Compressor, lam: float) -> Compressor:
@@ -102,6 +108,27 @@ def top_k(k_frac: float) -> Compressor:
                       wire=WireSpec("sparse_idx32"))
 
 
+def block_top_k(k_frac: float, block: int = 2048) -> Compressor:
+    """Top-k within contiguous blocks of ``block`` coordinates: in each block
+    keep every coordinate whose magnitude is >= the block's kb-th largest,
+    kb = round(k_frac * block) (the zero-padded tail block included)."""
+
+    def fn(x, noise, gen):
+        d = x.shape[0]
+        nb = -(-d // block)
+        xp = F.pad(x, (0, nb * block - d)).reshape(nb, block)
+        kb = max(1, int(round(k_frac * block)))
+        thresh = torch.topk(xp.abs(), kb, dim=1).values[:, -1:]
+        mask = (xp.abs() >= thresh).to(x.dtype)
+        return (xp * mask).reshape(-1)[:d]
+
+    eta = math.sqrt(max(0.0, 1.0 - k_frac))
+    return Compressor(f"block_top_k({k_frac:g},{block})", fn, eta=eta, omega=0.0,
+                      bits_per_dim=k_frac * (32 + math.log2(block)),
+                      deterministic=True,
+                      wire=WireSpec("sparse_block", block=block))
+
+
 def qsgd(bits: int = 8, block: int = 2048, stochastic: bool = True) -> Compressor:
     """Blockwise absmax s-level quantizer; ``round(y + u)`` with u in
     [-0.5, 0.5), so stochastic rounding is unbiased.  Noise shape (nb, block)."""
@@ -146,6 +173,7 @@ def qsgd_kernel(bits: int = 8) -> Compressor:
 _REGISTRY = {
     "identity": identity,
     "top_k": top_k,
+    "topk_block": block_top_k,
     "qsgd": qsgd,
     "qsgd_kernel": qsgd_kernel,
 }

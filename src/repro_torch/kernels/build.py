@@ -1,9 +1,10 @@
 """Build the CUDA kernels with nvcc and bind them through ctypes.
 
-``csrc/quant.cu`` (B1-B3) and ``csrc/prune.cu`` (B7, B8) are compiled on
-first use into one shared library with a plain C interface (no PyTorch
-headers, so a build takes seconds), cached under ``_build/`` by a hash of
-the sources and the flags, by one nvcc run.  Nothing here runs at import
+``csrc/quant.cu`` (B1-B3, B6), ``csrc/bitmask.cu`` (B4, B5) and
+``csrc/prune.cu`` (B7, B8) are compiled on first use into one shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds), cached under ``_build/`` by a hash of the sources and the flags,
+by one nvcc run.  Nothing here runs at import
 time: the CPU tests import every module on a machine with neither nvcc nor a
 card.
 
@@ -25,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = (CSRC / "quant.cu", CSRC / "prune.cu")
+SOURCES = (CSRC / "quant.cu", CSRC / "bitmask.cu", CSRC / "prune.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -41,6 +42,9 @@ SIGNATURES = {
     "repro_quant_dequant_2d": (_P, _P, _P, _I64, _I32, _P),
     "repro_quant_pack_2d": (_P, _P, _P, _P, _I64, _I32, _P),
     "repro_unpack_dequant_2d": (_P, _P, _P, _I64, _P),
+    "repro_stream_quant_pack_2d": (_P, _P, _P, _P, _I64, _I32, _P),
+    "repro_pack_mask_2d": (_P, _P, _I64, _P),
+    "repro_unpack_mask_2d": (_P, _P, _I64, _P),
     "repro_nm_prune_2d_f32": _NM,
     "repro_nm_prune_2d_bf16": _NM,
     "repro_wanda_prune_2d_f32": _WANDA,

@@ -1,15 +1,17 @@
-// Blockwise absmax int-s quantization for Hopper (sm_90a): kernels B1-B3.
+// Blockwise absmax int-s quantization for Hopper (sm_90a): kernels B1-B3
+// and B6.
 //
 // Replaces the JAX package's Pallas TPU kernels
-//   B1 repro/kernels/quant8.py  quant_dequant_2d  (_quant_kernel)
-//   B2 repro/kernels/bitpack.py quant_pack_2d     (_quant_pack_kernel)
-//   B3 repro/kernels/bitpack.py unpack_dequant_2d (_unpack_dequant_kernel)
+//   B1 repro/kernels/quant8.py  quant_dequant_2d     (_quant_kernel)
+//   B2 repro/kernels/bitpack.py quant_pack_2d        (_quant_pack_kernel)
+//   B3 repro/kernels/bitpack.py unpack_dequant_2d    (_unpack_dequant_kernel)
+//   B6 repro/kernels/stream.py  stream_quant_pack_2d (_stream_kernel)
 //
 // Input layout: the flat tensor viewed as (rows, 512) row-major, one
 // quantization block (one scale) per row.  Per row:
 //   scale = absmax * f32(1/s)            (1.0 where the row is all zero)
 //   q     = clip(floor(x / scale + u), -s, s)
-//   B1 out = q * scale;  B2 out = (int8 q, scale);  B3 out = q * scale.
+//   B1 out = q * scale;  B2 and B6 out = (int8 q, scale);  B3 out = q * scale.
 //
 // Numerics are the contract, bit for bit with the plain PyTorch versions in
 // repro_torch/kernels/ref.py and with the Pallas kernels: the reciprocal is
@@ -19,7 +21,7 @@
 //
 // Bound: all three are elementwise passes over device memory, so bytes bound
 // them (3.35 TB/s on an H100 SXM).  Per element: B1 reads x and u and writes
-// out, 12 B; B2 reads 8 B and writes 1 B plus 4 B per row; B3 reads 1 B plus
+// out, 12 B; B2 and B6 read 8 B and write 1 B plus 4 B per row; B3 reads 1 B plus
 // 4 B per row and writes 4 B.  The arithmetic (about 6 flops per element)
 // is far below the card's f32 rate.
 //
@@ -31,7 +33,22 @@
 // with __shfl_xor_sync, so x is read exactly once and nothing but the
 // outputs is written.  All offsets are 64-bit: the main path's delta has
 // 1.83e9 elements, whose f32 byte offsets exceed 2^32.  A first, simple
-// design: no TMA or shared-memory staging, which later work may add.
+// design for B1-B3: no TMA or shared-memory staging.
+//
+// B6 is B2 with the data movement the TPU kernel owns: its two-slot VMEM
+// ring copies tile k+1 in while tile k is quantized.  Here persistent blocks
+// (as many as fit on the card) walk the 8 x 512 tiles, each with a two-stage
+// shared-memory ring of x and noise tiles (2 x 32 KB, dynamic shared memory):
+// tile k+1's rows are copied in with cp.async (16 B per copy, one commit
+// group per tile) while tile k computes, and cp.async.wait_group 1 lets the
+// newer group stay in flight.  One warp per row computes from shared memory
+// with B2's lane mapping and arithmetic (quant1, the same scale), so B6
+// equals B2 bit for bit: the row's absmax is a max, which no reduction order
+// changes.  Each lane reads back only the 16-byte slots it copied itself, so
+// the ring needs no barrier beyond each thread's own wait.  q and the scales
+// are stored straight to device memory: the TPU ring's outbound half (copy
+// the packed tile out while the next computes) has no counterpart, because
+// a GPU store does not hold the thread that issues it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,6 +60,10 @@ constexpr int kWarp = 32;
 constexpr int kRowsPerBlock = 8;
 constexpr int kThreads = kWarp * kRowsPerBlock;
 constexpr int kSteps = kQBlock / (kWarp * 4);  // 4 vector steps per lane
+constexpr int kStages = 2;                     // B6 ring depth
+// B6 shared memory: [stage][row][x | noise][512 f32] = 2 x 32 KB
+constexpr int kRowVec = kQBlock / 4;           // float4 slots per row and plane
+constexpr int kStreamSmem = kStages * kRowsPerBlock * 2 * kQBlock * 4;
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -129,6 +150,84 @@ unpack_dequant_kernel(const int8_t* __restrict__ q,
   }
 }
 
+// One 16-byte asynchronous copy device memory -> shared memory (cp.async,
+// bypassing L1), and its commit / wait.
+__device__ __forceinline__ void cp_async16(float4* smem, const float* gmem) {
+  const unsigned int dst =
+      static_cast<unsigned int>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(dst), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_newest_pending() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kThreads)
+stream_quant_pack_kernel(const float* __restrict__ x,
+                         const float* __restrict__ u,
+                         int8_t* __restrict__ q_out,
+                         float* __restrict__ scale_out, int64_t n_tiles,
+                         float s, float inv_s) {
+  extern __shared__ float4 ring[];  // [kStages][kRowsPerBlock][2][kRowVec]
+  const int lane = threadIdx.x % kWarp;
+  const int r = threadIdx.x / kWarp;  // the warp's row within a tile
+  // this lane's slot for step k of plane p (0 = x, 1 = noise) in a stage
+  auto slot = [&](int stage, int p, int k) {
+    return ring + ((stage * kRowsPerBlock + r) * 2 + p) * kRowVec +
+           k * kWarp + lane;
+  };
+  auto offset = [&](int64_t tile) {
+    return (tile * kRowsPerBlock + r) * kQBlock + lane * 4;
+  };
+  // the lane copies exactly the float4s it will compute on (B2's mapping)
+  auto fill = [&](int stage, int64_t tile) {
+    const int64_t base = offset(tile);
+#pragma unroll
+    for (int k = 0; k < kSteps; ++k) {
+      cp_async16(slot(stage, 0, k), x + base + k * kWarp * 4);
+      cp_async16(slot(stage, 1, k), u + base + k * kWarp * 4);
+    }
+  };
+
+  int64_t tile = blockIdx.x;
+  if (tile < n_tiles) fill(0, tile);
+  cp_async_commit();
+  for (int stage = 0; tile < n_tiles; tile += gridDim.x, stage ^= 1) {
+    const int64_t next = tile + gridDim.x;
+    if (next < n_tiles) fill(stage ^ 1, next);  // tile k+1 copies in ...
+    cp_async_commit();                          // (an empty group at the end)
+    cp_async_wait_newest_pending();             // ... while tile k computes
+
+    float4 xv[kSteps];
+    float m = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kSteps; ++k) {
+      xv[k] = *slot(stage, 0, k);
+      m = absmax4(m, xv[k]);
+    }
+    m = warp_max(m);
+    float scale = __fmul_rn(m, inv_s);
+    if (scale == 0.0f) scale = 1.0f;
+
+    const int64_t base = offset(tile);
+#pragma unroll
+    for (int k = 0; k < kSteps; ++k) {
+      const float4 uv = *slot(stage, 1, k);
+      *reinterpret_cast<char4*>(q_out + base + k * kWarp * 4) = make_char4(
+          static_cast<signed char>(quant1(xv[k].x, uv.x, scale, s)),
+          static_cast<signed char>(quant1(xv[k].y, uv.y, scale, s)),
+          static_cast<signed char>(quant1(xv[k].z, uv.z, scale, s)),
+          static_cast<signed char>(quant1(xv[k].w, uv.w, scale, s)));
+    }
+    if (lane == 0) scale_out[tile * kRowsPerBlock + r] = scale;
+  }
+}
+
 // Grid for `rows` rows; 0 when the count does not fit a 1-D grid.
 unsigned int grid_for(int64_t rows) {
   const int64_t blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
@@ -170,6 +269,36 @@ int repro_unpack_dequant_2d(const int8_t* q, const float* scales, float* out,
   const unsigned int grid = grid_for(rows);
   if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
   unpack_dequant_kernel<<<grid, kThreads, 0, stream>>>(q, scales, out, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B6: `rows` must be a whole number of 8-row tiles.  The grid is persistent:
+// as many 256-thread blocks as fit on the card at once (64 KB of dynamic
+// shared memory each), never more than there are tiles.
+int repro_stream_quant_pack_2d(const float* x, const float* u, int8_t* q,
+                               float* scales, long long rows, int s,
+                               cudaStream_t stream) {
+  if (rows <= 0) return 0;
+  if (rows % kRowsPerBlock) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      stream_quant_pack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kStreamSmem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, stream_quant_pack_kernel, kThreads, kStreamSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int64_t n_tiles = rows / kRowsPerBlock;
+  const int64_t resident = static_cast<int64_t>(sms) * per_sm;
+  const unsigned int grid =
+      static_cast<unsigned int>(n_tiles < resident ? n_tiles : resident);
+  const float fs = static_cast<float>(s);
+  stream_quant_pack_kernel<<<grid, kThreads, kStreamSmem, stream>>>(
+      x, u, q, scales, n_tiles, fs, 1.0f / fs);
   return static_cast<int>(cudaGetLastError());
 }
 

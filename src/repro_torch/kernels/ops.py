@@ -1,6 +1,11 @@
 """Public wrappers around the kernels (port of ``repro/kernels/ops.py``).
 
-Quantization (B1/B2/B3): pad a flat tensor to whole ``(TILE_ROWS, QBLOCK)``
+Mask bit packing (B4/B5): ``pack_bits``/``unpack_bits`` view a flat mask of
+d coordinates as (32, W), W = ceil(d/32), so bit j of word w is
+``mask[j*W + w]`` (the JAX package's stride-W order, which is the
+``sparse_bitmap`` wire format).
+
+Quantization (B1/B2/B3/B6): pad a flat tensor to whole ``(TILE_ROWS, QBLOCK)``
 tiles and supply the stochastic-rounding noise.  The noise is either passed
 in (``noise=``, shape ``(rows_pad, QBLOCK)``, f32 in [0, 1) — how the tests
 inject the JAX package's draw) or drawn from an explicit ``generator``.
@@ -23,7 +28,31 @@ from repro_torch.kernels import bitpack as _bp
 from repro_torch.kernels import nm_prune as _nm
 from repro_torch.kernels import quant8 as _q8
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import stream as _st
 from repro_torch.kernels import wanda_score as _ws
+
+
+def pack_bits(mask: torch.Tensor) -> torch.Tensor:
+    """Flat bool/uint8 mask (d,) -> (ceil(d/32),) int32 words (uint32 bits)
+    in the stride-W order.  The (32, W) view is the mask itself when d fills
+    it (no copy); otherwise a zero-padded copy, so bits past d are 0."""
+    flat = mask.contiguous().reshape(-1)
+    d = flat.numel()
+    w = -(-d // _bp.PACK_BITS)
+    if d == _bp.PACK_BITS * w:
+        m2d = flat.view(_bp.PACK_BITS, w)
+    else:
+        m2d = flat.new_zeros((_bp.PACK_BITS, w))
+        m2d.view(-1)[:d] = flat
+    return _bp.pack_mask_2d(m2d).reshape(-1)
+
+
+def unpack_bits(words: torch.Tensor, d: int) -> torch.Tensor:
+    """Inverse of pack_bits: (ceil(d/32),) int32 words -> (d,) uint8 0/1."""
+    w = words.numel()
+    if w != -(-d // _bp.PACK_BITS):
+        raise ValueError(f"{w} words for d={d}, expected {-(-d // _bp.PACK_BITS)}")
+    return _bp.unpack_mask_2d(words.contiguous().reshape(1, w)).reshape(-1)[:d]
 
 
 def tile_rows(d: int) -> int:
@@ -36,9 +65,10 @@ def _quant_tiles(x: torch.Tensor, noise: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None):
     """Shared shape plumbing of every quantize entry point: pad the flat
     tensor with zeros to whole tiles and take or draw the noise.  ONE
-    definition on purpose — quantize_pack and quantize_dequantize are
-    bit-identical only while they pad and draw identically.  When ``x``
-    already fills whole tiles the padded view is ``x`` itself (no copy)."""
+    definition on purpose — quantize_pack, stream_quantize_pack and
+    quantize_dequantize are bit-identical only while they pad and draw
+    identically.  When ``x`` already fills whole tiles the padded view is
+    ``x`` itself (no copy)."""
     flat = x.contiguous().reshape(-1)
     d = flat.numel()
     rows_pad = tile_rows(d)
@@ -68,6 +98,18 @@ def quantize_pack(x: torch.Tensor, noise: Optional[torch.Tensor] = None,
     bit for bit (same padding, same noise)."""
     padded, noise, _ = _quant_tiles(x, noise, generator)
     return _bp.quant_pack_2d(padded, noise, bits=bits)
+
+
+def stream_quantize_pack(x: torch.Tensor, noise: torch.Tensor):
+    """8-bit quantize_pack through kernel B6's double-buffered ring: the same
+    padding, and the noise passed in, so the planes equal quantize_pack's
+    bit for bit.
+
+    B6 exists only as the counterpart of the JAX package's streaming kernel:
+    no codec or user path calls it (``encode_stream`` packs through B2, as
+    the JAX package's does), so only the tests and ``chip_smoke.py`` run it."""
+    padded, noise, _ = _quant_tiles(x, noise)
+    return _st.stream_quant_pack_2d(padded, noise)
 
 
 def unpack_dequantize(q: torch.Tensor, scales: torch.Tensor,

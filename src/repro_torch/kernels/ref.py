@@ -1,8 +1,8 @@
-"""Plain PyTorch versions of kernels B1-B3, B7 and B8 (the kernels' oracles).
+"""Plain PyTorch versions of kernels B1-B8 (the kernels' oracles).
 
-The wrappers in ``quant8``/``bitpack``/``nm_prune``/``wanda_score`` take
-these for tensors on the CPU; the CUDA kernels are held to them bit for bit
-on the card.
+The wrappers in ``quant8``/``bitpack``/``stream``/``nm_prune``/
+``wanda_score`` take these for tensors on the CPU; the CUDA kernels are held
+to them bit for bit on the card.
 
 Scale rule: ``scale = absmax * f32(1/s)`` — a multiply by the f32-rounded
 reciprocal, which is what the JAX package's Pallas kernels compute (XLA
@@ -56,6 +56,43 @@ def unpack_dequant_ref(q2d: torch.Tensor, scales: torch.Tensor,
                        out_dtype=torch.float32) -> torch.Tensor:
     """B3: ``q * scale`` back to dense."""
     return q2d.float().mul_(scales).to(out_dtype)
+
+
+def stream_quant_pack_ref(x2d: torch.Tensor, noise2d: torch.Tensor,
+                          tile_rows: int = 8):
+    """B6: B2's 8-bit planes computed tile by tile (port of
+    ``repro/kernels/ref.py:stream_quant_pack_ref``, under the scale rule
+    above).  Quantization blocks run along axis 1, so tiling the rows cannot
+    change a bit; a large ``tile_rows`` bounds the temporaries (the last tile
+    may be short)."""
+    tiles = [quant_pack_ref(x2d[r:r + tile_rows], noise2d[r:r + tile_rows])
+             for r in range(0, x2d.shape[0], tile_rows)]
+    if not tiles:
+        return quant_pack_ref(x2d, noise2d)
+    return torch.cat([q for q, _ in tiles]), torch.cat([s for _, s in tiles])
+
+
+# ---------------------------------------------------------------------------
+# B4/B5: presence-mask bit packing (port of repro/kernels/ref.py:19-30)
+# ---------------------------------------------------------------------------
+def pack_mask_ref(mask2d: torch.Tensor) -> torch.Tensor:
+    """B4: (32, C) mask, one byte per coordinate (nonzero = set) -> (1, C)
+    int32 words holding the uint32 bits: bit j of word c is ``mask[j, c]``.
+    One pass per bit row keeps the temporaries one row wide."""
+    words = torch.zeros(mask2d.shape[1], dtype=torch.int32, device=mask2d.device)
+    for j in range(mask2d.shape[0]):
+        words |= mask2d[j].ne(0).to(torch.int32) << j
+    return words.reshape(1, -1)
+
+
+def unpack_mask_ref(words2d: torch.Tensor) -> torch.Tensor:
+    """B5: (1, C) int32 words -> (32, C) uint8 mask of 0/1 (the Pallas kernel
+    emits uint32 of the same values)."""
+    words = words2d.reshape(-1)
+    out = torch.empty((32, words.numel()), dtype=torch.uint8, device=words.device)
+    for j in range(32):
+        out[j] = (words >> j).bitwise_and_(1).to(torch.uint8)
+    return out
 
 
 # ---------------------------------------------------------------------------

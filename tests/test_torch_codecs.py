@@ -50,7 +50,8 @@ def _jax_noise(jx, name, key, d):
 
 CASES = [("identity", {}), ("top_k", {"k_frac": 0.05}), ("qsgd", {"bits": 8}),
          ("qsgd", {"bits": 4}), ("qsgd_kernel", {"bits": 8}),
-         ("qsgd_kernel", {"bits": 4})]
+         ("qsgd_kernel", {"bits": 4}), ("topk_block", {"k_frac": 0.05, "block": 256}),
+         ("topk_block", {"k_frac": 0.01})]
 
 
 def _pair(jx, name, kw, seed):
@@ -235,3 +236,124 @@ def test_ledger_tags_and_totals_match_jax(jx):
     assert (t.total_bytes, t.bytes_by_tag(), t.bytes_by_round(), t.bytes_by_kind(),
             t.summary()) == (j.total_bytes, j.bytes_by_tag(), j.bytes_by_round(),
                              j.bytes_by_kind(), j.summary())
+
+
+@pytest.mark.parametrize("name,kw", [("top_k", {"k_frac": 0.05}), ("identity", {}),
+                                     ("topk_block", {"k_frac": 0.05, "block": 256})])
+def test_bitmap_override_planes_equal_and_cross_decode(jx, name, kw):
+    """encode(..., scheme="sparse_bitmap"): any sparsifier's carrier as a
+    presence bitmap (B4) + values; decoded through B5's plain version."""
+    jcodecs = jx[3]
+    jcomp, tcomp, key, x, _ = _pair(jx, name, kw, seed=8)
+    jp = jcodecs.encode(jcomp, key, jx[1].asarray(x), scheme="sparse_bitmap")
+    tp = codecs.encode(tcomp, torch.from_numpy(x), scheme="sparse_bitmap")
+    assert (tp.scheme, tp.shape, tp.dtype, tp.meta) == (jp.scheme, jp.shape, jp.dtype, jp.meta)
+    assert tp.nbytes == jp.nbytes == 4 * -(-x.size // 32) + 4 * tp.planes["values"].size
+    for k in jp.planes:
+        assert tp.planes[k].dtype == np.asarray(jp.planes[k]).dtype, k
+        assert tp.planes[k].tobytes() == np.asarray(jp.planes[k]).tobytes(), k
+    want = np.asarray(jcodecs.decode(jp))
+    assert codecs.decode(jp, device="cpu").numpy().tobytes() == want.tobytes()
+    assert np.asarray(jcodecs.decode(tp)).tobytes() == want.tobytes()
+    assert bool((codecs.decode(tp, device="cpu") == tcomp(torch.from_numpy(x))).all())
+
+
+@pytest.mark.parametrize("nbits", [1, 3, 8, 11, 13, 32, 56])
+def test_uint_stream_bytes_equal_jax(jx, nbits):
+    jcodecs = jx[3]
+    rng = np.random.default_rng(nbits)
+    vals = rng.integers(0, 2 ** min(nbits, 62), 997, dtype=np.int64) & ((1 << nbits) - 1)
+    want = jcodecs._pack_uint_stream(vals.astype(np.uint64), nbits)
+    got = codecs._pack_uint_stream(torch.from_numpy(vals), nbits)
+    assert got.dtype == np.uint8 and got.tobytes() == want.tobytes()
+    back = codecs._unpack_uint_stream(got, vals.size, nbits, "cpu")
+    assert np.array_equal(back.numpy(), vals)
+    assert np.array_equal(back.numpy(), jcodecs._unpack_uint_stream(want, vals.size, nbits))
+
+
+def _bitmap_and_block_payloads():
+    x = torch.from_numpy(_x(9))
+    bm = codecs.encode(tc.make_compressor("top_k", k_frac=0.05), x, scheme="sparse_bitmap")
+    blk = codecs.encode(tc.make_compressor("topk_block", k_frac=0.05, block=256), x)
+    return bm, blk
+
+
+@pytest.mark.parametrize("which,plane,cut", [
+    ("bitmap", "mask_words", lambda a: a[:-1]), ("bitmap", "values", lambda a: a[:-1]),
+    ("block", "local_indices", lambda a: a[:-1]), ("block", "values", lambda a: a[:-2]),
+    ("block", "block_counts", lambda a: a[:-1])])
+def test_validation_names_the_bad_sparse_plane(which, plane, cut):
+    bm, blk = _bitmap_and_block_payloads()
+    p = bm if which == "bitmap" else blk
+    planes = dict(p.planes)
+    planes[plane] = cut(planes[plane])
+    with pytest.raises(codecs.PayloadError) as e:
+        codecs.decode(codecs.Payload(p.scheme, p.shape, p.dtype, planes, dict(p.meta)),
+                      device="cpu")
+    assert e.value.plane == plane
+
+
+def test_validation_catches_a_flipped_mask_bit_and_an_overfull_block():
+    bm, blk = _bitmap_and_block_payloads()
+    words = bm.planes["mask_words"].copy()
+    words[0] ^= np.uint32(1 << 7)                 # one bit more or fewer
+    with pytest.raises(codecs.PayloadError) as e:
+        codecs.validate_payload(codecs.Payload(bm.scheme, bm.shape, bm.dtype,
+                                               {**bm.planes, "mask_words": words}, bm.meta))
+    assert e.value.plane == "values"
+    counts = blk.planes["block_counts"].copy()
+    counts[0] = 257
+    with pytest.raises(codecs.PayloadError) as e:
+        codecs.validate_payload(codecs.Payload(blk.scheme, blk.shape, blk.dtype,
+                                               {**blk.planes, "block_counts": counts},
+                                               blk.meta))
+    assert e.value.plane == "block_counts"
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bitmap_validation_counts_every_set_bit(seed):
+    """validate_payload's popcount equals np.unpackbits' count, high bits and
+    all-ones words included."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1 << 32, size=37, dtype=np.uint32)
+    words[0], words[1] = 0xFFFFFFFF, 0x80000000
+    pop = int(np.unpackbits(words.view(np.uint8)).sum())
+    d = 32 * words.size
+
+    def payload(n_values):
+        return codecs.Payload("sparse_bitmap", (d,), "float32",
+                              {"mask_words": words,
+                               "values": np.zeros(n_values, np.float32)}, {"d": d})
+
+    codecs.validate_payload(payload(pop))
+    with pytest.raises(codecs.PayloadError) as e:
+        codecs.validate_payload(payload(pop + 1))
+    assert e.value.plane == "values"
+
+
+@pytest.mark.parametrize("name,kw,scheme", [
+    ("identity", {}, None), ("top_k", {"k_frac": 0.05}, None),
+    ("top_k", {"k_frac": 0.05}, "sparse_bitmap"), ("topk_block", {"k_frac": 0.05}, None),
+    ("qsgd", {"bits": 8}, None), ("qsgd", {"bits": 4}, None),
+    ("qsgd_kernel", {"bits": 8}, None), ("qsgd_kernel", {"bits": 4}, None)])
+def test_size_model_equals_jax(jx, name, kw, scheme):
+    """encoded_bits, extrapolate_bits (to several d) and analytic_bits."""
+    jcodecs = jx[3]
+    jcomp, tcomp, key, x, noise = _pair(jx, name, kw, seed=10)
+    jbits = jcodecs.encoded_bits(jcomp, key, jx[1].asarray(x), scheme=scheme)
+    assert codecs.encoded_bits(tcomp, torch.from_numpy(x), noise=noise, scheme=scheme) == jbits
+    jp = jcodecs.encode(jcomp, key, jx[1].asarray(x), scheme=scheme)
+    tp = codecs.encode(tcomp, torch.from_numpy(x), noise=noise, scheme=scheme)
+    assert tp.nbits == jp.nbits == jbits
+    for d in (x.size, 4 * x.size + 7, 1_831_202_816):
+        assert codecs.extrapolate_bits(tp, x.size, d) == jcodecs.extrapolate_bits(jp, x.size, d)
+        assert codecs.analytic_bits(tcomp, d) == jcodecs.analytic_bits(jcomp, d)
+
+
+@pytest.mark.parametrize("name,kw", CASES)
+def test_roundtrip_equal_matches_jax(jx, name, kw):
+    jcodecs = jx[3]
+    jcomp, tcomp, key, x, noise = _pair(jx, name, kw, seed=11)
+    assert jcodecs.roundtrip_equal(jcomp, key, jx[1].asarray(x))
+    assert codecs.roundtrip_equal(tcomp, torch.from_numpy(x), noise=noise)
+    assert codecs.roundtrip_equal(tcomp, torch.from_numpy(x), seed=3)

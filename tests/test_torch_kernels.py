@@ -1,4 +1,4 @@
-"""Port kernels B1-B3: plain versions vs the JAX Pallas kernels, and the
+"""Port kernels B1-B6: plain versions vs the JAX Pallas kernels, and the
 CUDA kernels vs the plain versions on the card.
 
 Parity tolerance: none — every comparison is bitwise.  The JAX side runs the
@@ -12,10 +12,11 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.kernels import bitpack, build, ops, quant8, ref
+from repro_torch.kernels import bitpack, build, ops, quant8, ref, stream
 
 torch.set_num_threads(2)
 QUANT = ("quant_dequant_2d", "quant_pack_2d", "unpack_dequant_2d")   # B1-B3
+MASK_D = (1, 31, 32, 33, 4097, 4101)                                 # B4/B5 ragged d
 
 
 @pytest.fixture(scope="module")
@@ -157,6 +158,70 @@ def test_nvcc_command_pins_the_numerics():
         assert entry in text
 
 
+def _mask(d, seed=0, p=0.3):
+    return np.random.default_rng(seed).random(d) < p
+
+
+@pytest.mark.parametrize("d", MASK_D)
+def test_pack_bits_bitwise_equal_jax_ops(jx, d):
+    """B4/B5 through ops: the stride-W word stream and its inverse."""
+    _, jnp, _, _, jops = jx
+    m = _mask(d, seed=d)
+    jw = np.asarray(jops.pack_bits(jnp.asarray(m)))
+    for mt in (torch.from_numpy(m), torch.from_numpy(m.astype(np.uint8))):
+        w = ops.pack_bits(mt)
+        assert w.dtype == torch.int32 and w.numpy().view(np.uint32).tobytes() == _bits(jw)
+    back = ops.unpack_bits(w, d)
+    assert back.dtype == torch.uint8
+    assert np.array_equal(back.numpy(), np.asarray(jops.unpack_bits(jnp.asarray(jw), d)))
+    assert np.array_equal(back.numpy(), m.astype(np.uint8))
+
+
+@pytest.mark.parametrize("c", [128, 384])
+def test_plain_mask_kernels_bitwise_equal_jax_interpret(jx, c):
+    """B4/B5 on (32, C): the port's byte mask vs the Pallas kernel's uint32
+    mask (equal values), words bit for bit."""
+    _, jnp, _, jbp, _ = jx
+    m = _mask(32 * c, seed=c, p=0.5).reshape(32, c)
+    m[:, 5] = True                                   # a word with all 32 bits
+    m[:, 6] = False
+    jw = np.asarray(jbp.pack_mask_2d(jnp.asarray(m.astype(np.uint32))))
+    w = bitpack.pack_mask_2d(torch.from_numpy(m))
+    assert w.shape == (1, c) and w.numpy().view(np.uint32).tobytes() == _bits(jw)
+    assert np.uint32(jw[0, 5]) == np.uint32(0xFFFFFFFF)
+    jm = np.asarray(jbp.unpack_mask_2d(jnp.asarray(jw)))
+    um = bitpack.unpack_mask_2d(w)
+    assert um.dtype == torch.uint8 and np.array_equal(um.numpy(), jm)
+    assert np.array_equal(ref.unpack_mask_ref(ref.pack_mask_ref(torch.from_numpy(m))).numpy(),
+                          m.astype(np.uint8))
+
+
+def test_mask_wrappers_reject_what_the_kernels_do_not_take():
+    m = torch.zeros((32, 8), dtype=torch.bool)
+    with pytest.raises(ValueError):
+        bitpack.pack_mask_2d(m[:31])                      # not 32 rows
+    with pytest.raises(TypeError):
+        bitpack.pack_mask_2d(m.float())                   # not a byte mask
+    with pytest.raises(ValueError):
+        bitpack.pack_mask_2d(torch.zeros((8, 32), dtype=torch.bool).t())  # strided
+    with pytest.raises(TypeError):
+        bitpack.unpack_mask_2d(torch.zeros((1, 8), dtype=torch.int64))
+    with pytest.raises(ValueError):
+        bitpack.unpack_mask_2d(torch.zeros((2, 8), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        ops.unpack_bits(torch.zeros(3, dtype=torch.int32), 200)   # 7 words needed
+    with pytest.raises(ValueError):                           # neither CPU nor CUDA
+        bitpack.pack_mask_2d(m.to("meta"))
+
+
+def test_cpu_mask_and_stream_wrappers_count_no_launch():
+    kernels.reset_launch_counts()
+    ops.unpack_bits(ops.pack_bits(torch.from_numpy(_mask(100))), 100)
+    x, u = _tiles(rows=16)
+    stream.stream_quant_pack_2d(torch.from_numpy(x), torch.from_numpy(u))
+    assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -194,3 +259,34 @@ def test_cuda_ops_ragged_equal_cpu(cuda_device):
     cpu = ops.quantize_dequantize(x, noise=noise)
     card = ops.quantize_dequantize(x.to(cuda_device), noise=noise.to(cuda_device))
     assert torch.equal(card.cpu().view(torch.int32), cpu.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", MASK_D + (5 * 512 + 37, 1 << 20))
+def test_cuda_mask_kernels_bitwise_equal_plain(cuda_device, d):
+    m = torch.from_numpy(_mask(d, seed=d)).to(cuda_device)
+    kernels.reset_launch_counts()
+    w = ops.pack_bits(m)
+    back = ops.unpack_bits(w, d)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["pack_mask_2d"] == 1
+    assert kernels.launch_counts()["unpack_mask_2d"] == 1
+    assert torch.equal(w.cpu(), ops.pack_bits(m.cpu()))
+    assert torch.equal(back, m.to(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [8, 1024, 8 * 1000 + 8])
+def test_cuda_stream_kernel_equals_b2_and_plain(cuda_device, rows):
+    """B6 == B2 == the plain version bit for bit, with zero rows, over more
+    tiles than the persistent grid has blocks."""
+    x, u = _tiles(rows=max(rows, 8), seed=rows)
+    tx, tu = torch.from_numpy(x).to(cuda_device), torch.from_numpy(u).to(cuda_device)
+    kernels.reset_launch_counts()
+    q, s = stream.stream_quant_pack_2d(tx, tu)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["stream_quant_pack_2d"] == 1
+    q2, s2 = bitpack.quant_pack_2d(tx, tu)
+    qr, sr = ref.stream_quant_pack_ref(tx, tu, tile_rows=64)
+    assert torch.equal(q, q2) and torch.equal(s.view(torch.int32), s2.view(torch.int32))
+    assert torch.equal(q, qr) and torch.equal(s.view(torch.int32), sr.view(torch.int32))

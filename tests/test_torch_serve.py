@@ -188,3 +188,39 @@ def test_personalize_leaves_touches_only_matching_leaves(world):
     base, layout = bucketize(tp, BLOCK)
     delta = bucketize(pers, BLOCK)[0] - base
     assert int(delta.ne(0).any(1).sum()) <= 4
+
+
+def test_bitmap_wire_store_and_pager_equal_jax(world):
+    """The documented opt-in: any sparsifier with WireSpec("sparse_bitmap").
+    Payload planes (B4's words) and page-in bytes equal the JAX store's; the
+    resident blocks equal the store's nonzero decoded blocks (B5)."""
+    from dataclasses import replace
+
+    from repro.core.compressors import WireSpec as JWire
+    from repro.core.compressors import make_compressor as j_make
+    from repro.serve import BlockPool as JPool
+    from repro.serve import DeltaStore as JStore
+
+    jcomp = replace(j_make("top_k", k_frac=0.01), wire=JWire("sparse_bitmap"))
+    tcomp = replace(make_compressor("top_k", k_frac=0.01), wire=WireSpec("sparse_bitmap"))
+    js = JStore(world["jp"], jcomp, block_size=BLOCK, seed=7)
+    ts = DeltaStore(world["tp"], tcomp, block_size=BLOCK, seed=7)
+    jpool, tpool = JPool(js, 64, metrics=None), BlockPool(ts, 64, metrics=MetricsRegistry())
+    for uid in range(2):
+        js.put(uid, world["pers"][uid])
+        ts.put(uid, world["tpers"][uid])
+        jpl, tpl = js.payload(uid), ts.payload(uid)
+        assert tpl.scheme == "sparse_bitmap" and tpl.meta == jpl.meta
+        assert tpl.nbytes == jpl.nbytes == \
+            4 * (ts.layout.padded_d // 32) + 4 * tpl.planes["values"].size
+        for k in jpl.planes:
+            assert tpl.planes[k].tobytes() == np.asarray(jpl.planes[k]).tobytes(), k
+        jpool.acquire(uid)
+        entry = tpool.acquire(uid)
+        blocks = ts.blocks(uid)
+        nz = torch.nonzero(blocks.ne(0).any(dim=1)).reshape(-1)
+        assert entry.n_blocks == int(nz.numel()) == jpool.entry(uid).n_blocks
+        resident = tpool.blocks[entry.table[nz].long()]
+        assert torch.equal(resident.view(torch.int32), blocks[nz].view(torch.int32))
+    assert ts.ledger.bytes_by_tag() == js.ledger.bytes_by_tag()
+    assert ts.ledger.bytes_by_tag()[PAGE_IN_TAG] == ts.total_payload_bytes()
