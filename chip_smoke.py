@@ -7,7 +7,8 @@ Phases, each printed on its own ``[phase]`` line; any failure raises and
 the script exits nonzero without printing a result:
 
   device   the card's name and power limit (nvidia-smi); no card -> exit 1
-  build    nvcc builds kernels B1-B8 from src/repro_torch/kernels/csrc/
+  build    nvcc builds kernels B1-B8 from src/repro_torch/kernels/csrc/ (one
+           nvcc per source, started together, then one link)
   kernels  B1-B6 against their plain PyTorch versions on the card, bit for
            bit: B1-B3 on a ragged tensor with zero rows (bits 8 and 4) and a
            2^26-element slice of the main path's shape; B4/B5 (pack_bits /
@@ -26,11 +27,14 @@ the script exits nonzero without printing a result:
   prune    the second path: SymWanda pruning of full-width h2o-danube-1.8b
            (bf16, seed 0) through its CLI (launch/prune.py): the loss ladder
            of magnitude / wanda / ria / symwanda at 50% and 60%, wanda +
-           R^2-DSnoT and wanda 2:4; B8 and B7 must have launched.  Then on
-           all 24 w_in layers, for every mode and sparsity: B8 and B7 bit
+           R^2-DSnoT and wanda 2:4; B8 and B7 must have launched, every B8
+           launch in its selecting mode (tau=None).  Then on all 24 w_in
+           layers, for every mode and sparsity: B8 (tau given) and B7 bit
            for bit equal to their plain versions on the same tau / scores,
-           the B8 wanda mask equal to core.symwanda.prune's, and every B7
-           disagreement with mask_nm inside a group of tied scores
+           the selecting B8's (out, mask, tau) bit for bit equal to
+           scored_args' torch.topk tau + the plain mask, the B8 wanda mask
+           equal to core.symwanda.prune's, and every B7 disagreement with
+           mask_nm inside a group of tied scores
   codec    the third path: the wire codecs at the full width of the delta
            space (1,831,202,816 coordinates).  (a) A DeltaStore with top_k
            (1%) on the sparse_bitmap wire stores two norm-only users (B4 per
@@ -47,9 +51,13 @@ the script exits nonzero without printing a result:
            B4, B5 and B6 must have launched.  Then, not counted: B4/B5 and
            B6 against their plain versions at full width, and B6 == B2
   timing   B1-B3 and B6 (beside B2) at the serve path's shape, B4/B5 at the
-           codec path's d, and B7/B8 at one full-width w_in (2560 x 6912
-           bf16) on the card (CUDA events, medians or queued runs), beside
-           the plain versions, the byte bound and B3's torch.mul yardstick
+           codec path's d, and B7/B8 (both modes, three score modes) at one
+           full-width w_in (2560 x 6912 bf16) on the card (CUDA events,
+           medians or queued runs), beside the plain versions, the bound
+           and B3's torch.mul yardstick; prune_scored's old route
+           (statistics / plain scores + torch.topk / tau-given B8) against
+           the selecting route (statistics / selecting B8), torch.topk
+           alone, and one wanda call's peak allocation on each route
 
 The last three lines are the kernels JSON, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -89,6 +97,7 @@ PRUNE_INFO = (
     ("B8", "wanda_prune_2d", "src/repro/kernels/wanda_score.py:60"),
 )
 PRUNE_SOURCE = "src/repro_torch/kernels/csrc/prune.cu"
+B8_MODES = ("wanda", "ria", "symwanda")
 # id, wrapper name, TPU kernel replaced, source, integer or f32 operations
 # per coordinate (B4/B5: compare or shift, mask, or / store)
 CODEC_INFO = (
@@ -518,11 +527,14 @@ def phase_prune(cfg, device):
     if on_card:
         torch.cuda.synchronize(device)
     counts = kernels.launch_counts()
+    selecting = wanda_score.wanda_prune_2d.selecting
     mem.mark("ladder")
     require(all(math.isfinite(v) for v in ladder.values()), f"non-finite loss: {ladder}")
+    require(selecting == counts["wanda_prune_2d"],
+            f"{counts['wanda_prune_2d'] - selecting} of the ladder's B8 launches took tau")
     log("prune", f"loss ladder of {len(ladder)} rows in {time.perf_counter() - t0:.2f} s; "
                  f"dense {ladder['dense']:.4f} vs ln V {math.log(cfg.vocab_size):.4f}; "
-                 f"kernels {json.dumps(counts)}")
+                 f"kernels {json.dumps(counts)}, B8 selecting {selecting}")
 
     # -- checks (their launches are not counted)
     t0 = time.perf_counter()
@@ -530,20 +542,27 @@ def phase_prune(cfg, device):
     X = prune_cli.calib_acts(params, cfg, prune_cli.calib_batch(cfg, 0, device))
     stack = params["blocks"]["pos0"]["mlp"]["w_in"]
     errs = {"nm_prune_2d": 0.0, "wanda_prune_2d": 0.0}
-    n_checked = nm_differ = 0
+    n_checked = nm_differ = n_selecting = 0
     for li in range(stack.shape[0]):
         W = stack[li]
         d_in, d_out = W.shape
         for mode in prune_cli.FUSED:
             for sparsity in prune_cli.SPARSITIES:
-                wp, kw, _ = ops.scored_args(W, X, mode, sparsity)
+                wp, kw, (r, c) = ops.scored_args(W, X, mode, sparsity)
                 out, mask = wanda_score.wanda_prune_2d(wp, **kw)
                 ro, rm = ref.wanda_prune_ref(wp, **kw)
                 what = f"B8 layer {li} {mode}@{sparsity}"
                 require(bits_equal(out, ro) and bits_equal(mask, rm), f"{what} != plain")
+                k = ops.keep_count(d_in, sparsity)
+                # the selecting mode against scored_args' torch.topk + plain
+                tau = kw.pop("tau")
+                so, sm, st = wanda_score.wanda_prune_2d(wp, tau=None, k=k, rows=r, cols=c, **kw)
+                require(bits_equal(so, ro) and bits_equal(sm, rm) and bits_equal(st, tau),
+                        f"{what}: selecting (out, mask, tau) != scored_args + plain")
                 errs["wanda_prune_2d"] = max(errs["wanda_prune_2d"], max_abs_err(out, ro),
-                                             max_abs_err(mask, rm))
-                k = max(1, int(round((1 - sparsity) * d_in)))
+                                             max_abs_err(mask, rm), max_abs_err(so, ro),
+                                             max_abs_err(sm, rm), max_abs_err(st, tau))
+                n_selecting += 1
                 require(int(mask.sum(0, dtype=torch.int32).min()) >= k,
                         f"{what}: a column keeps fewer than {k}")
                 if mode == "wanda":
@@ -568,7 +587,9 @@ def phase_prune(cfg, device):
         torch.cuda.synchronize(device)
     mem.mark("checks")
     log("prune", f"{n_checked} kernel calls on {stack.shape[0]} w_in {tuple(stack.shape[1:])} "
-                 f"{stack.dtype} layers bit for bit equal to the plain versions; B8 wanda "
+                 f"{stack.dtype} layers bit for bit equal to the plain versions, and "
+                 f"{n_selecting} selecting B8 calls' (out, mask, tau) equal to scored_args' "
+                 f"torch.topk + plain; B8 wanda "
                  f"masks == symwanda.prune; B7 vs mask_nm: {nm_differ} differing groups, "
                  f"all with tied scores; {time.perf_counter() - t0:.2f} s")
     if on_card:
@@ -579,7 +600,7 @@ def phase_prune(cfg, device):
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    return counts, errs, layer
+    return counts, selecting, errs, layer
 
 
 # ---------------------------------------------------------------------------
@@ -884,55 +905,150 @@ def queued_ms(fn, n=20, sleep_cycles=100_000_000):
     return a.elapsed_time(b) / n
 
 
-def phase_prune_timing(layer, counts, errs):
-    """B7 and B8 at one full-width w_in: times (median of 5 queued runs),
-    bounds, and the kernels JSON entries."""
+def search_compares(scores, k, live=256):
+    """Compares B8's selecting search makes on these scores (f32, (rows,
+    cols), all >= +0), replaying its steps per column: a full-column step
+    compares every key, a gathered step the 256 gathered slots, the gather
+    one pass.  Returns (compares, the k-th largest key per column)."""
+    import torch
+    rows, cols = scores.shape
+    keys = scores.contiguous().view(torch.int32).to(torch.int64) | (1 << 31)
+    cand = torch.zeros(cols, dtype=torch.int64, device=scores.device)
+    at, above = torch.full_like(cand, rows), torch.zeros_like(cand)
+    gathered = torch.zeros(cols, dtype=torch.bool, device=scores.device)
+    compares = torch.zeros_like(cand)
+    for b in range(31, -1, -1):
+        t = cand | (1 << b)
+        c = (keys >= t).sum(0)
+        compares += torch.where(gathered, live, rows)
+        take = c >= k
+        cand, at, above = torch.where(take, t, cand), torch.where(take, c, at), torch.where(take, above, c)
+        new = ~gathered & (at - above <= live) if b > 0 else torch.zeros_like(gathered)
+        compares += torch.where(new, rows, 0)
+        gathered |= new
+    return int(compares.sum()), cand
+
+
+def peak_delta(device, fn):
+    """(peak allocation above the live tensors before ``fn()``, peak above
+    what is allocated after it, with its result alive), in bytes."""
+    import torch
+    torch.cuda.synchronize(device)
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    out = fn()
+    torch.cuda.synchronize(device)
+    peak, after = torch.cuda.max_memory_allocated(device), torch.cuda.memory_allocated(device)
+    del out
+    return peak - before, peak - after
+
+
+def phase_prune_timing(layer, counts, selecting, errs):
+    """B7 and B8 (both modes) at one full-width w_in: times (median of 5
+    queued runs), bounds and the kernels JSON entries; then prune_scored's
+    old route (scored_args + tau-given B8) against its selecting route,
+    split by CUDA events (medians of 20), torch.topk alone on the plain
+    score matrix, and the peak allocation of one wanda call of each."""
     import torch
     from repro_torch.core import symwanda as sw
     from repro_torch.kernels import nm_prune, ops, ref, wanda_score
 
     W, X = layer
+    device = W.device
     d_in, d_out = W.shape
     n = d_in * d_out
     es = W.element_size()
-    med = lambda fn, k: statistics.median(queued_ms(fn, k) for _ in range(5))
-    times, bytes_, ops_ = {}, {}, {}
-    for mode in ("wanda", "ria", "symwanda"):
-        wp, kw, _ = ops.scored_args(W, X, mode, 0.5)
-        times[mode] = (med(lambda: wanda_score.wanda_prune_2d(wp, **kw), 20),
-                       med(lambda: ref.wanda_prune_ref(wp, **kw), 5))
-        # w read once, out and mask written once, the f32 statistics read once
+    k = ops.keep_count(d_in, 0.5)
+    med = lambda fn, reps: statistics.median(queued_ms(fn, reps) for _ in range(5))
+    ev = lambda fn: cuda_ms(fn, reps=20)
+    rows = {}
+    # per element: abs, the score's multiplies / divides / add, the compare
+    # and the product
+    score_ops = {"wanda": 4, "ria": 7, "symwanda": 10}
+
+    def row(key, label, ms, plain_ms, nbytes, nops):
+        t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * nops / F32_FLOPS
+        rows[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops else "operations")
+        log("timing", f"{label} ({d_in}x{d_out} {W.dtype}): {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, bound {rows[key]['bound_ms']:.4f} ms "
+                      f"({rows[key]['bound_by']}, {nbytes / 1e6:.1f} MB, {nops / 1e9:.3f} G "
+                      f"ops), {100 * rows[key]['bound_ms'] / ms:.1f}% of bound")
+
+    for mode in B8_MODES:
+        wp, kw, (r, c) = ops.scored_args(W, X, mode, 0.5)
+        tau = kw.pop("tau")
+        given = lambda: wanda_score.wanda_prune_2d(wp, tau=tau, **kw)
+        select = lambda: wanda_score.wanda_prune_2d(wp, tau=None, k=k, rows=r, cols=c, **kw)
+        # w read once, out and mask written once, the f32 statistics read
+        # once; tau read (given) or written (selecting)
         vec = {"wanda": d_in + d_out,                  # xnorm, tau
                "ria": 2 * (d_in + d_out),              # + rowsum, colsum
                "symwanda": d_in + 2 * d_out}[mode]     # + ynorm
-        bytes_[mode] = 3 * es * n + 4 * vec
-        # per element: abs, the score's multiplies / divides / add, the
-        # compare and the product
-        ops_[mode] = {"wanda": 4, "ria": 7, "symwanda": 10}[mode] * n
+        nbytes = 3 * es * n + 4 * vec
+        row(f"given {mode}", f"B8 wanda_prune_2d tau given {mode}", med(given, 20),
+            med(lambda: ref.wanda_prune_ref(wp, tau=tau, **kw), 5), nbytes, score_ops[mode] * n)
+        scores = ref.wanda_scores_ref(wp, **kw)
+        compares, key = search_compares(scores, k)
+        require(torch.equal((key & 0x7fffffff).to(torch.int32).view(torch.float32), tau),
+                f"{mode}: the replayed search's k-th keys != torch.topk's tau")
+        # + two operations (compare, add) for each compare of the search
+        row(f"select {mode}", f"B8 wanda_prune_2d selecting {mode} ({compares / n:.2f} "
+            f"search compares an element)", med(select, 20),
+            med(lambda: ref.wanda_prune_ref(wp, tau=None, k=k, **kw), 5), nbytes,
+            score_ops[mode] * n + 2 * compares)
+        rows[f"select {mode}"]["topk_ms"] = ev(lambda: torch.topk(scores.T, k))
+        del scores
+
+        def old_route():
+            wp_, kw_, (r_, c_) = ops.scored_args(W, X, mode, 0.5)
+            out, mask = wanda_score.wanda_prune_2d(wp_, **kw_)
+            return out[:r_, :c_], mask[:r_, :c_]
+
+        new_route = lambda: ops.prune_scored(W, X, mode, 0.5)
+        sp = ops._statistics(W, X, mode, 0.5, 0.5)
+        split = {"statistics": ev(lambda: ops._statistics(W, X, mode, 0.5, 0.5)),
+                 "scores+topk": ev(lambda: torch.topk(ref.wanda_scores_ref(W, **sp).T,
+                                                       k).values[:, -1]),
+                 "mask": ev(given), "old": ev(old_route),
+                 "selecting": ev(select), "new": ev(new_route)}
+        del sp
+        log("timing", f"prune_scored {mode}: old route {split['old']:.4f} ms (statistics "
+                      f"{split['statistics']:.4f} / plain scores + torch.topk "
+                      f"{split['scores+topk']:.4f} / tau-given B8 {split['mask']:.4f}); new "
+                      f"route {split['new']:.4f} ms (statistics {split['statistics']:.4f} / "
+                      f"selecting B8 {split['selecting']:.4f}); torch.topk(scores.T, {k}) "
+                      f"alone {rows[f'select {mode}']['topk_ms']:.4f} ms (CUDA events, "
+                      f"medians of 20)")
+        if mode == "wanda":
+            for label, fn in (("old", old_route), ("new", new_route)):
+                above, temp = peak_delta(device, fn)
+                log("timing", f"prune_scored wanda, {label} route: peak allocation "
+                              f"{above / 1e6:.1f} MB above the live tensors before the call, "
+                              f"{temp / 1e6:.1f} MB above its result")
+
     S = sw.score_wanda(W, X)
-    times["2:4"] = (med(lambda: nm_prune.nm_prune_2d(W, S, 2, 4), 20),
-                    med(lambda: ref.nm_prune_ref(W, S, 2, 4), 5))
-    bytes_["2:4"] = 3 * es * n + 4 * n          # + the f32 scores
-    ops_["2:4"] = 17 * n        # per element: 4 + 4 compares, their 8 adds, the product
-    rows = {}
-    for key, (ms, plain_ms) in times.items():
-        t_bytes = 1e3 * bytes_[key] / HBM_BYTES_PER_S
-        t_ops = 1e3 * ops_[key] / F32_FLOPS
-        rows[key] = (ms, plain_ms, max(t_bytes, t_ops),
-                     "bytes" if t_bytes >= t_ops else "operations")
-        log("timing", f"{'B7 nm_prune_2d 2:4' if key == '2:4' else f'B8 wanda_prune_2d {key}'} "
-                      f"({d_in}x{d_out} {W.dtype}): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                      f"bound {rows[key][2]:.4f} ms ({rows[key][3]}, "
-                      f"{bytes_[key] / 1e6:.1f} MB), library n/a, "
-                      f"{100 * rows[key][2] / ms:.1f}% of bound")
-    out = []
-    for (kid, name, replaces), key in zip(PRUNE_INFO, ("2:4", "wanda")):
-        ms, plain_ms, bound_ms, bound_by = rows[key]
-        out.append({"id": kid, "name": name, "route": "cuda", "source": PRUNE_SOURCE,
-                    "replaces": replaces, "launches": counts[name],
-                    "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
-    return out
+    row("2:4", "B7 nm_prune_2d 2:4", med(lambda: nm_prune.nm_prune_2d(W, S, 2, 4), 20),
+        med(lambda: ref.nm_prune_ref(W, S, 2, 4), 5),
+        3 * es * n + 4 * n,                    # + the f32 scores
+        17 * n)             # per element: 4 + 4 compares, their 8 adds, the product
+    del S
+    entries = []
+    for (kid, name, replaces), key in zip(PRUNE_INFO, ("2:4", "select wanda")):
+        entry = {"id": kid, "name": name, "route": "cuda", "source": PRUNE_SOURCE,
+                 "replaces": replaces, "launches": counts[name],
+                 "max_abs_err": errs[name], **{f: rows[key][f] for f in (
+                     "ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None}
+        if name == "wanda_prune_2d":
+            # the prune path runs the selecting mode; both modes, every score
+            # mode; torch.topk on the plain scores is the selection's yardstick
+            entry["modes"] = {
+                "selecting": {"launches": selecting, **{m: rows[f"select {m}"]
+                                                        for m in B8_MODES}},
+                "tau_given": {"launches": counts[name] - selecting,
+                              **{m: rows[f"given {m}"] for m in B8_MODES}}}
+        entries.append(entry)
+    return entries
 
 
 def main():
@@ -949,7 +1065,7 @@ def main():
     for kid, name, _, _ in KERNEL_INFO:
         require(counts[name] > 0, f"{kid} {name} was not launched on the main path")
     phase_ref(device)
-    prune_counts, prune_errs, layer = phase_prune(get_config(ARCH), device)
+    prune_counts, selecting, prune_errs, layer = phase_prune(get_config(ARCH), device)
     for kid, name, _ in PRUNE_INFO:
         require(prune_counts[name] > 0, f"{kid} {name} was not launched on the prune path")
     codec_counts, d = phase_codec(get_config(ARCH), device, serve_payload_bytes)
@@ -959,7 +1075,7 @@ def main():
     launches = {**counts, **{name: codec_counts[name] for _, name, _, _, _ in CODEC_INFO}}
     kernels = phase_timing(rows, device, launches)
     kernels += phase_mask_timing(d, device, launches)
-    kernels += phase_prune_timing(layer, prune_counts, prune_errs)
+    kernels += phase_prune_timing(layer, prune_counts, selecting, prune_errs)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

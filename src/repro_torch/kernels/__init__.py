@@ -10,7 +10,8 @@
   B8 wanda_score.wanda_prune_2d     fused wanda/ria/symwanda score + mask
 
 Each wrapper counts its launches in a plain integer attribute
-(``wrapper.launches``), incremented only where the CUDA kernel launches.
+(``wrapper.launches``), incremented only where the CUDA kernel launches;
+B8 also counts its selecting launches (``wanda_prune_2d.selecting``).
 """
 from repro_torch.kernels import bitpack, nm_prune, quant8, stream, wanda_score
 
@@ -33,3 +34,4 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    wanda_score.wanda_prune_2d.selecting = 0

@@ -3,8 +3,9 @@
 ``csrc/quant.cu`` (B1-B3, B6), ``csrc/bitmask.cu`` (B4, B5) and
 ``csrc/prune.cu`` (B7, B8) are compiled on first use into one shared
 library with a plain C interface (no PyTorch headers, so a build takes
-seconds), cached under ``_build/`` by a hash of the sources and the flags,
-by one nvcc run.  Nothing here runs at import
+seconds), cached under ``_build/`` by a hash of the sources and the flags:
+one nvcc per source, all started together, then one link.  Nothing here
+runs at import
 time: the CPU tests import every module on a machine with neither nvcc nor a
 card.
 
@@ -29,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = (CSRC / "quant.cu", CSRC / "bitmask.cu", CSRC / "prune.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + (
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-ftz=false", "-prec-div=true", "-prec-sqrt=true", "-fmad=false",
     "-Xptxas", "-v",
 )
@@ -37,7 +38,7 @@ NVCC_FLAGS = ARCH_FLAGS + (
 # C entry points: name -> argtypes (pointers and the stream as c_void_p)
 _P, _I64, _I32, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 _NM = (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _P)
-_WANDA = (_P,) * 8 + (_I64, _I64, _I32, _F, _F, _F, _F, _P)
+_WANDA = (_P,) * 8 + (_I64, _I64, _I32, _F, _F, _F, _F, _I32, _I64, _I64, _I64, _P)
 SIGNATURES = {
     "repro_quant_dequant_2d": (_P, _P, _P, _I64, _I32, _P),
     "repro_quant_pack_2d": (_P, _P, _P, _P, _I64, _I32, _P),
@@ -83,8 +84,13 @@ def library_path() -> Path:
     return BUILD_DIR / f"librepro_kernels-{h.hexdigest()[:16]}.so"
 
 
-def nvcc_command(out: Path, nvcc: str = "nvcc") -> list:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, SOURCES)]
+def nvcc_commands(out: Path, nvcc: str = "nvcc") -> tuple:
+    """-> (one compile command per source, each writing ``out``'s name with
+    the source's stem and ``.o``, the link command into ``out``)."""
+    objs = [out.with_name(f"{out.stem}-{src.stem}.o") for src in SOURCES]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                for src, o in zip(SOURCES, objs)]
+    return compiles, [nvcc, *ARCH_FLAGS, "-shared", "-o", str(out), *map(str, objs)]
 
 
 def build() -> Path:
@@ -99,13 +105,23 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    proc = subprocess.run(nvcc_command(Path(tmp), nvcc_path()), stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
-    BUILD_LOG = proc.stdout
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(f"nvcc failed for {', '.join(s.name for s in SOURCES)} "
-                               f"(rc {proc.returncode}):\n{proc.stdout}")
+    tmp = Path(tmp)
+    compiles, link = nvcc_commands(tmp, nvcc_path())
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in compiles]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [src.name for src, p in zip(SOURCES, procs) if p.returncode != 0]
+    if not failed:
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs.append(proc.stdout)
+        if proc.returncode != 0:
+            failed = ["the link"]
+    BUILD_LOG = "".join(logs)
+    for cmd in compiles:
+        Path(cmd[cmd.index("-o") + 1]).unlink(missing_ok=True)
+    if failed:
+        tmp.unlink(missing_ok=True)
+        raise KernelBuildError(f"nvcc failed for {', '.join(failed)}:\n{BUILD_LOG}")
     os.replace(tmp, path)    # atomic: concurrent builds agree
     return path
 

@@ -14,8 +14,9 @@ Pruning (B7/B8): ``prune_nm`` is the N:M backend of
 ``core/symwanda.mask_nm`` and ``prune_scored`` the fused backend of
 ``core/symwanda.prune``.  They pad a (d_in, d_out) weight to whole 128 x 128
 tiles and compute the cheap statistics the kernels take (input norms,
-per-output thresholds, RIA sums, symwanda normalizers) with torch, as the
-JAX package computes them outside its Pallas kernels.
+RIA sums, symwanda normalizers) with torch, as the JAX package computes
+them outside its Pallas kernels; B8 finds the per-output thresholds
+itself.
 """
 from __future__ import annotations
 
@@ -180,17 +181,19 @@ def input_norms(X: torch.Tensor) -> torch.Tensor:
     return X.float().square().sum(0).sqrt()
 
 
-def scored_args(w: torch.Tensor, X: torch.Tensor, mode: str = "wanda",
-                sparsity: float = 0.5, alpha: float = 0.5, beta: float = 0.5):
-    """The statistics and per-output thresholds of a fused prune ->
-    (padded w, keyword arguments of ``wanda_prune_2d``, (rows, cols)).
+def keep_count(d_in: int, sparsity: float) -> int:
+    """k, the scores each output column keeps: round((1 - sparsity) d_in),
+    at least 1 (Python's round, as the JAX ops layer)."""
+    return max(1, int(round((1 - sparsity) * d_in)))
 
-    ``tau_j`` is the k-th largest score of column j, k = round((1 -
-    sparsity) d_in), from the plain version's score (the kernel recomputes
-    the same bits).  Padding: xnorm 0, tau +inf, RIA sums 1, ynorm 0."""
-    d_in, d_out = w.shape
+
+def _statistics(w: torch.Tensor, X: torch.Tensor, mode: str, alpha: float,
+                beta: float) -> dict:
+    """The unpadded statistics of a fused prune, as keyword arguments of
+    ``wanda_prune_2d`` (without tau): input norms, RIA sums, symwanda's
+    output norms and normalizers."""
     xnorm = input_norms(X)
-    kw = dict(mode=mode, alpha=alpha, beta=beta)
+    kw = dict(xnorm=xnorm, mode=mode, alpha=alpha, beta=beta)
     if mode == "ria":
         aw = w.float().abs()
         kw.update(rowsum=aw.sum(1), colsum=aw.sum(0))
@@ -201,26 +204,51 @@ def scored_args(w: torch.Tensor, X: torch.Tensor, mode: str = "wanda",
                   mu_out=float((aw * ynorm[None, :]).mean()))
     elif mode != "wanda":
         raise ValueError(mode)
-    scores = _ref.wanda_scores_ref(w, xnorm, **kw)
-    k = max(1, int(round((1 - sparsity) * d_in)))
-    tau = torch.topk(scores.T, k).values[:, -1]          # per output column
-    del scores
+    return kw
 
+
+def _padded(w: torch.Tensor, kw: dict):
+    """-> (w padded to whole tiles, kw with padded statistics, (rows, cols)).
+    Padding: xnorm 0, RIA sums 1, ynorm 0."""
     wp, r, c = _pad2d(w, _ws.TILE_R, _ws.TILE_C)
     rp, cp = wp.shape
-    kw.update(xnorm=_pad1d(xnorm, rp, 0.0), tau=_pad1d(tau, cp, math.inf))
-    if mode == "ria":
+    kw = dict(kw, xnorm=_pad1d(kw["xnorm"], rp, 0.0))
+    if kw["mode"] == "ria":
         kw.update(rowsum=_pad1d(kw["rowsum"], rp, 1.0), colsum=_pad1d(kw["colsum"], cp, 1.0))
-    elif mode == "symwanda":
+    elif kw["mode"] == "symwanda":
         kw.update(ynorm=_pad1d(kw["ynorm"], cp, 0.0))
     return wp, kw, (r, c)
+
+
+def scored_args(w: torch.Tensor, X: torch.Tensor, mode: str = "wanda",
+                sparsity: float = 0.5, alpha: float = 0.5, beta: float = 0.5):
+    """The statistics and per-output thresholds of a fused prune ->
+    (padded w, keyword arguments of ``wanda_prune_2d``, (rows, cols)).
+
+    ``tau_j`` is the k-th largest score of column j (``keep_count``) from
+    the plain version's full score matrix, as the JAX ops layer takes it;
+    padded columns get tau = +inf.  This is B8's tau-given route, kept for
+    the tests and checks that hold the selecting route to it."""
+    kw = _statistics(w, X, mode, alpha, beta)
+    scores = _ref.wanda_scores_ref(w, **kw)
+    tau = torch.topk(scores.T, keep_count(w.shape[0], sparsity)).values[:, -1]
+    del scores
+    wp, kw, rc = _padded(w, kw)
+    kw["tau"] = _pad1d(tau, wp.shape[1], math.inf)
+    return wp, kw, rc
 
 
 def prune_scored(w: torch.Tensor, X: torch.Tensor, mode: str = "wanda",
                  sparsity: float = 0.5, alpha: float = 0.5, beta: float = 0.5):
     """Fused score+mask prune of w (d_in, d_out) with calibration X (T, d_in):
     keep the top (1 - sparsity) of every output column.  Returns (pruned,
-    mask) in w's dtype."""
-    wp, kw, (r, c) = scored_args(w, X, mode, sparsity, alpha, beta)
-    out, mask = _ws.wanda_prune_2d(wp, **kw)
+    mask) in w's dtype.
+
+    The statistics come from torch; then one launch of B8 in its selecting
+    mode finds each column's threshold and writes the mask, so no score
+    matrix is built and no top-k is called on the card (on the CPU the plain
+    version does both)."""
+    wp, kw, (r, c) = _padded(w, _statistics(w, X, mode, alpha, beta))
+    out, mask, _ = _ws.wanda_prune_2d(wp, tau=None, k=keep_count(r, sparsity),
+                                      rows=r, cols=c, **kw)
     return out[:r, :c], mask[:r, :c]

@@ -14,6 +14,8 @@ through them.  ``x / scale`` is a correctly rounded division, then
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -145,10 +147,22 @@ def wanda_scores_ref(w, xnorm, mode="wanda", alpha=0.5, beta=0.5, rowsum=None,
 
 
 def wanda_prune_ref(w, xnorm, tau, mode="wanda", alpha=0.5, beta=0.5, rowsum=None,
-                    colsum=None, ynorm=None, mu_in=1.0, mu_out=1.0):
+                    colsum=None, ynorm=None, mu_in=1.0, mu_out=1.0, k=None, rows=None,
+                    cols=None):
     """B8: keep ``s_ij >= tau_j``; returns ``(w * keep, keep)``, ``keep`` in
-    ``w``'s dtype (a product, not a select: ``-w * 0`` is ``-0.0``)."""
+    ``w``'s dtype (a product, not a select: ``-w * 0`` is ``-0.0``).
+
+    ``tau=None`` selects: ``tau_j`` is the k-th largest score of column j <
+    cols over rows < rows (both default to w's shape) as ``torch.topk``
+    gives it, NaN ranked above everything, and +inf past cols; the result
+    is ``(w * keep, keep, tau)``."""
     s = wanda_scores_ref(w, xnorm, mode, alpha, beta, rowsum, colsum, ynorm,
                          mu_in, mu_out)
+    selecting = tau is None
+    if selecting:
+        rows = w.shape[0] if rows is None else rows
+        cols = w.shape[1] if cols is None else cols
+        tau = s.new_full((s.shape[1],), math.inf)
+        tau[:cols] = torch.topk(s[:rows, :cols].T, k).values[:, -1]
     keep = (s >= tau[None, :]).to(w.dtype)
-    return w * keep, keep
+    return (w * keep, keep, tau) if selecting else (w * keep, keep)

@@ -144,14 +144,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 
 
 def test_nvcc_command_pins_the_numerics():
-    cmd = build.nvcc_command(build.BUILD_DIR / "x.so")
-    flat = " ".join(cmd)
-    assert "arch=compute_90a,code=sm_90a" in flat
-    for flag in ("-ftz=false", "-prec-div=true", "-fmad=false", "-shared"):
-        assert flag in cmd
-    assert "fast_math" not in flat and "use_fast_math" not in flat
-    for src in build.SOURCES:
+    compiles, link = build.nvcc_commands(build.BUILD_DIR / "x.so")
+    assert len(compiles) == len(build.SOURCES)          # one nvcc per source
+    for cmd, src in zip(compiles, build.SOURCES):
+        flat = " ".join(cmd)
+        assert "arch=compute_90a,code=sm_90a" in flat
+        for flag in ("-ftz=false", "-prec-div=true", "-fmad=false", "-c"):
+            assert flag in cmd
+        assert "fast_math" not in flat and "use_fast_math" not in flat
         assert src.is_file() and src.parent == build.CSRC and str(src) in cmd
+        assert cmd[cmd.index("-o") + 1] in link
+    assert "-shared" in link and "arch=compute_90a,code=sm_90a" in " ".join(link)
     assert build.library_path().parent == build.BUILD_DIR
     text = "".join(src.read_text() for src in build.SOURCES)
     for entry in build.SIGNATURES:

@@ -63,6 +63,11 @@ def _weights(shape, dtype, seed=0):
     return w, torch.from_numpy(w).to(getattr(torch, dtype))
 
 
+def _bits_equal(a, b):
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
 def _jw(jnp, w, dtype):
     return jnp.asarray(w).astype(getattr(jnp, dtype))
 
@@ -218,6 +223,127 @@ def test_ria_alpha_half_is_sqrt():
 
 
 # ---------------------------------------------------------------------------
+# B8's selecting mode (tau=None): the plain version against the tau-given
+# route (scored_args: full plain score matrix, torch.topk), bit for bit
+# ---------------------------------------------------------------------------
+def _tau_bits_equal(a, b):
+    """tau bit for bit, any NaN equal to any NaN (the card's NaN is not the
+    CPU's)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na].view(torch.int32),
+                                               b[~nb].view(torch.int32))
+
+
+def _select_vs_scored_args(W, X, mode, sparsity, run=wanda_score.wanda_prune_2d):
+    """(out, mask, tau) of the selecting mode via ``run`` on scored_args'
+    padded statistics, and scored_args + the tau-given plain version."""
+    wp, kw, (r, c) = ops.scored_args(W, X, mode, sparsity)
+    want = ref.wanda_prune_ref(wp, **kw)
+    tau = kw.pop("tau")
+    got = run(wp, tau=None, k=ops.keep_count(r, sparsity), rows=r, cols=c, **kw)
+    return got, want + (tau,)
+
+
+def _assert_select_equal(got, want, what):
+    assert _bits_equal(got[0], want[0]) and _bits_equal(got[1], want[1]), what
+    assert _tau_bits_equal(got[2], want[2]), what
+
+
+@pytest.mark.parametrize("sparsity", [0.5, 0.6, 0.0, 1.0])    # 0.0: k = d_in, 1.0: k = 1
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["wanda", "ria", "symwanda"])
+@pytest.mark.parametrize("shape", [(256, 128)] + RAGGED)      # ragged: pads rows and cols
+def test_b8_selecting_plain_equals_scored_args(shape, mode, dtype, sparsity):
+    W, X = _layer(shape, seed=12)
+    tW, tX = torch.from_numpy(W).to(dtype), torch.from_numpy(X).to(dtype)
+    got, want = _select_vs_scored_args(tW, tX, mode, sparsity)
+    _assert_select_equal(got, want, (shape, mode, dtype, sparsity))
+    k = ops.keep_count(shape[0], sparsity)
+    assert int(got[1][:shape[0], :shape[1]].float().sum(0).min()) >= k
+    assert bool(torch.isinf(got[2][shape[1]:]).all())          # padded columns
+
+
+def _tied_layer():
+    """A (256, 128) layer whose columns 3, 5 and 7 are all zero, all equal
+    and two-valued, under all-equal input norms: every score of those
+    columns ties with the threshold or another score."""
+    W, X = _layer((256, 128), seed=13)
+    W[:, 3] = 0.0
+    W[:, 5] = 0.25
+    W[::2, 7], W[1::2, 7] = 0.5, -0.5
+    X[:] = 1.0
+    return torch.from_numpy(W), torch.from_numpy(X)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["wanda", "symwanda"])
+def test_b8_selecting_plain_keeps_every_tie(mode, dtype):
+    tW, tX = _tied_layer()
+    tW, tX = tW.to(dtype), tX.to(dtype)
+    for sparsity in (0.5, 0.7):
+        got, want = _select_vs_scored_args(tW, tX, mode, sparsity)
+        _assert_select_equal(got, want, (mode, sparsity))
+        kept = got[1].float().sum(0)
+        assert int(kept[3]) == int(kept[5]) == int(kept[7]) == 256   # ties all kept
+
+
+def _nan_case():
+    """ria on a weight with an all-zero column (colsum 0: 0/0 is NaN in
+    every row of column 2), and wanda with three NaN input norms (NaN in
+    rows 0-2 of every column)."""
+    W, X = _layer((256, 128), seed=14)
+    W[:, 2] = 0.0
+    tW = torch.from_numpy(W)
+    aw = tW.abs()
+    xn = ops.input_norms(torch.from_numpy(X))
+    xn_nan = xn.clone()
+    xn_nan[:3] = float("nan")
+    return tW, (("ria", xn, dict(rowsum=aw.sum(1), colsum=aw.sum(0))),
+                ("wanda", xn_nan, {}))
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 128])
+def test_b8_selecting_ranks_nan_like_topk(k):
+    """The choice B8 makes for NaN scores: torch.topk's order (NaN above
+    everything), then s >= tau.  A column with k or more NaN scores gets a
+    NaN tau and keeps nothing; otherwise tau is the k-th largest counting
+    the NaNs first, and no NaN score is kept."""
+    tW, cases = _nan_case()
+    for mode, xn, kw in cases:
+        out, mask, tau = wanda_score.wanda_prune_2d(tW, xn, None, mode, k=k, **kw)
+        s = ref.wanda_scores_ref(tW, xn, mode, **kw)
+        n_nan = torch.isnan(s).sum(0)
+        assert torch.equal(torch.isnan(tau), n_nan >= k)
+        assert not bool(mask[torch.isnan(s)].any())
+        assert not bool(mask[:, n_nan >= k].any())
+        fin = n_nan < k
+        want = torch.where(torch.isnan(s), torch.inf, s).T.topk(k).values[:, -1]
+        assert torch.equal(tau[fin], want[fin])
+        assert torch.equal(mask, (s >= tau).float()) and torch.equal(out, tW * mask)
+
+
+def test_b8_selecting_wrapper_rejects_what_the_kernel_does_not_take():
+    w, xn, tau = torch.ones((128, 128)), torch.ones(128), torch.ones(128)
+    for bad in (dict(k=None), dict(k=0), dict(k=129), dict(k=5, rows=4),
+                dict(k=1, rows=129), dict(k=1, cols=129)):
+        with pytest.raises(ValueError):
+            wanda_score.wanda_prune_2d(w, xn, None, **bad)
+    with pytest.raises(ValueError):                          # k belongs to tau=None
+        wanda_score.wanda_prune_2d(w, xn, tau, k=1)
+
+
+def test_ops_prune_scored_is_the_selecting_route():
+    """prune_scored's result is scored_args + plain, cut to shape."""
+    W, X = _layer((300, 129), seed=15)
+    tW, tX = torch.from_numpy(W), torch.from_numpy(X)
+    for mode in ("wanda", "ria", "symwanda"):
+        out, mask = ops.prune_scored(tW, tX, mode=mode, sparsity=0.6)
+        wp, kw, _ = ops.scored_args(tW, tX, mode, 0.6)
+        ro, rm = ref.wanda_prune_ref(wp, **kw)
+        assert _bits_equal(out, ro[:300, :129]) and _bits_equal(mask, rm[:300, :129])
+
+
+# ---------------------------------------------------------------------------
 # ops
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("shape", [(256, 128)] + RAGGED)
@@ -301,6 +427,7 @@ def test_cpu_tensors_count_no_prune_launch():
     ops.prune_scored(tW, tX)
     ops.prune_nm(tW, tW.abs())
     assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
+    assert wanda_score.wanda_prune_2d.selecting == 0
 
 
 def test_prune_wrappers_reject_what_the_kernels_do_not_take():
@@ -333,11 +460,6 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (none present)")
     return torch.device("cuda", 0)
-
-
-def _bits_equal(a, b):
-    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
-    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
 
 
 def _card_check(device, W, X, dtype):
@@ -389,3 +511,66 @@ def test_cuda_kernel_wanda_matches_module(cuda_device):
         _, m_k = ops.prune_scored(tW, tX, mode="wanda", sparsity=sparsity)
         _, m_mod = sw.prune(tW, tX, method="wanda", sparsity=sparsity)
         assert torch.equal(m_k, m_mod)
+
+
+def _card_select_check(device, tW, tX, sparsities=(0.5, 0.6)):
+    """Selecting B8 on the card, every mode: (out, mask, tau) bit for bit
+    equal to scored_args + the tau-given plain version on the card (tau is
+    torch.topk's), and the tau-given kernel equal to its plain version."""
+    for mode in ("wanda", "ria", "symwanda"):
+        for sparsity in sparsities:
+            kernels.reset_launch_counts()
+            got, want = _select_vs_scored_args(tW.to(device), tX.to(device), mode, sparsity)
+            assert wanda_score.wanda_prune_2d.selecting == 1
+            torch.cuda.synchronize()
+            _assert_select_equal(got, want, (mode, sparsity))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(256, 128)] + RAGGED)
+def test_cuda_b8_selecting_bitwise_equal_topk_ragged(cuda_device, shape, dtype):
+    W, X = _layer(shape, seed=16)
+    _card_select_check(cuda_device, torch.from_numpy(W).to(dtype),
+                       torch.from_numpy(X).to(dtype), (0.5, 0.6, 0.0, 1.0))
+
+
+@pytest.mark.cuda
+def test_cuda_b8_selecting_bitwise_equal_topk_full_width(cuda_device):
+    """One h2o-danube-1.8b w_in: (2560, 6912) bf16, 512 calibration rows."""
+    g = torch.Generator().manual_seed(17)
+    W = torch.randn((2560, 6912), generator=g) / 2560 ** 0.5
+    X = torch.randn((512, 2560), generator=g)
+    _card_select_check(cuda_device, W.bfloat16(), X.bfloat16())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_b8_selecting_tied_zero_and_equal_columns(cuda_device, dtype):
+    tW, tX = _tied_layer()
+    _card_select_check(cuda_device, tW.to(dtype), tX.to(dtype), (0.5, 0.7))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_b8_selecting_too_tall_for_shared_memory(cuda_device, dtype):
+    """d_in = 7040 rows of f32 keys (220 KB a strip, beside the 8 KB gather
+    buffers) exceed the 227 KB a block can hold: the search recomputes each
+    key from w in global memory."""
+    W, X = _layer((7040 - 37, 200), seed=18)
+    _card_select_check(cuda_device, torch.from_numpy(W).to(dtype),
+                       torch.from_numpy(X).to(dtype), (0.5,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 4, 128])
+def test_cuda_b8_selecting_ranks_nan_like_topk(cuda_device, k):
+    tW, cases = _nan_case()
+    for mode, xn, kw in cases:
+        kw = {n: v.to(cuda_device) for n, v in kw.items()}
+        got = wanda_score.wanda_prune_2d(tW.to(cuda_device), xn.to(cuda_device), None,
+                                         mode, k=k, **kw)
+        want = ref.wanda_prune_ref(tW.to(cuda_device), xn.to(cuda_device), None, mode,
+                                   k=k, **kw)
+        torch.cuda.synchronize()
+        _assert_select_equal(got, want, (mode, k))
