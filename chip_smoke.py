@@ -50,6 +50,19 @@ the script exits nonzero without printing a result:
            tile [0, d).  (c) B6 (ops.stream_quantize_pack) at full width.
            B4, B5 and B6 must have launched.  Then, not counted: B4/B5 and
            B6 against their plain versions at full width, and B6 == B2
+  train    the fourth path: training.loop.train at the full width of
+           h2o-danube-1.8b (bf16, random weights from seed 0), on a
+           SyntheticLMDataset (seed 0), seq 64, a global batch of 2
+           sequences, AdamW: dense for 2 steps (the baseline); efbv +
+           qsgd_kernel with 2 groups for 3 steps, where B1 must launch
+           2 x 55 chunks every step and B2 for the round report, and one
+           full B1 chunk of step 0's real delta must equal its plain version
+           bit for bit; hier + qsgd with 2 replicas, sync_period 2, for 4
+           steps, where the replicas must differ after step 0 and be bitwise
+           equal to each other and to the bf16 anchor after steps 1 and 3.
+           Per run: each step's loss and grad norm (finite), the median step
+           split by CUDA events into forward + backward, sync and clip +
+           update, the peak device memory and the RoundCost bytes per round
   timing   B1-B3 and B6 (beside B2) at the serve path's shape, B4/B5 at the
            codec path's d, and B7/B8 (both modes, three score modes) at one
            full-width w_in (2560 x 6912 bf16) on the card (CUDA events,
@@ -108,6 +121,11 @@ CODEC_INFO = (
     ("B6", "stream_quant_pack_2d", "src/repro/kernels/stream.py:110", KERNEL_SOURCE, 7),
 )
 RAGGED_D = (1, 31, 33, 4097, 5 * 512 + 37)
+# train phase: (label, SyncConfig fields, steps, n_groups, n_pods)
+TRAIN_SEQ, TRAIN_BATCH = 64, 2
+TRAIN_RUNS = (("dense", {"mode": "dense"}, 2, 1, 1),
+              ("efbv + qsgd_kernel", {"mode": "efbv", "compressor": "qsgd_kernel"}, 3, 2, 1),
+              ("hier + qsgd", {"mode": "hier", "compressor": "qsgd", "sync_period": 2}, 4, 1, 2))
 
 
 class SmokeFailure(RuntimeError):
@@ -773,6 +791,234 @@ def phase_codec(cfg, device, serve_payload_bytes):
 
 
 # ---------------------------------------------------------------------------
+class StepSpans:
+    """The train step's phases from its ``obs.trace`` spans (``step/grad``,
+    ``step/sync``, ``step/apply``), timed on the card by the CUDA events the
+    tracer records at each span's ends (by the host clock off the card).
+    Inside ``with``, ``take()`` after each step keeps that step's spans;
+    ``split()`` gives per-step ms by phase."""
+    PHASES = {"step/grad": "grad", "step/sync": "sync", "step/apply": "apply"}
+
+    def __init__(self, device):
+        from repro_torch.obs import trace
+        self.trace, self.on_card, self.steps = trace, device.type == "cuda", []
+
+    def __enter__(self):
+        self.was = self.trace.enabled()
+        self.trace.get_tracer().reset()
+        self.trace.enable(device_events=self.on_card)
+        return self
+
+    def __exit__(self, *exc):
+        self.trace.disable()
+        if self.was:
+            self.trace.enable()
+        self.trace.get_tracer().reset()
+        return False
+
+    def take(self):
+        tracer = self.trace.get_tracer()
+        self.steps.append([sp for sp in tracer.spans() if sp.name in self.PHASES])
+        tracer.reset()
+
+    def split(self):
+        import torch
+        if self.on_card:
+            torch.cuda.synchronize()
+        out = []
+        for spans in self.steps:
+            row = {"grad": 0.0, "sync": 0.0, "apply": 0.0}
+            for sp in spans:
+                row[self.PHASES[sp.name]] += (self.trace.device_ms(sp) if self.on_card
+                                              else sp.dur_us / 1e3)
+            row["total"] = sum(row.values())
+            out.append(row)
+        return out
+
+
+class KernelProbe:
+    """Stands in for a kernel module inside the module that calls it, for one
+    run: the run's first call of ``fn`` (B1: a full chunk of step 0's delta;
+    B2: the round report's probe) is held bit for bit against its plain
+    version on the same input and noise.  The kernel call itself is the main
+    path's, counted by the wrapper as always; the plain version launches
+    nothing."""
+
+    def __init__(self, module, fn, plain):
+        self._mod, self._fn, self._plain = module, fn, plain
+        self.checked = None
+
+    def __getattr__(self, name):
+        if name == self._fn:
+            return self._call
+        return getattr(self._mod, name)
+
+    def _call(self, x2d, noise2d, bits=8):
+        kernel = getattr(self._mod, self._fn)
+        if self.checked is not None:
+            return kernel(x2d, noise2d, bits=bits)
+        x_in = x2d.clone()
+        out = kernel(x2d, noise2d, bits=bits)
+        want = self._plain(x_in, noise2d, bits)
+        got, want = (out, want) if isinstance(out, tuple) else ((out,), (want,))
+        self.checked = (tuple(x2d.shape), all(bits_equal(g, w) for g, w in zip(got, want)),
+                        max(max_abs_err(g, w) for g, w in zip(got, want)))
+        self.inputs = (x_in, noise2d.clone(), bits)     # for timing after the run
+        del want
+        return out
+
+    def time_ms(self):
+        """The kernel's time on the checked input (CUDA events, median of 5);
+        the caller resets the launch counts after it."""
+        x_in, u, bits = self.inputs
+        kernel = getattr(self._mod, self._fn)
+        return cuda_ms(lambda: kernel(x_in, u, bits=bits))
+
+
+def check_replicas(step, state, want_equal):
+    """hier: after a sync step the replicas equal each other and the bf16
+    anchor bit for bit; after step 0 they differ."""
+    from repro_torch.utils.tree import tree_flatten
+    leaves = tree_flatten(state.params)[0]
+    anchor = tree_flatten(state.sync_state.h_bar)[0]
+    same = [bits_equal(p[0], p[1]) for p in leaves]
+    if want_equal:
+        require(all(same), f"hier step {step}: replicas differ after a sync step")
+        require(all(bits_equal(p[0], a.to(p.dtype)) for p, a in zip(leaves, anchor)),
+                f"hier step {step}: replicas != the anchor cast to bf16")
+    else:
+        require(not all(same), f"hier step {step}: replicas equal before any sync")
+
+
+def phase_train(cfg, device):
+    """The training path at full width: three runs through
+    ``training.loop.train``.  Returns the launch counts of the path."""
+    import math
+    import torch
+    from repro_torch import kernels
+    from repro_torch.comm.accounting import PROBE_CAP
+    from repro_torch.configs.base import SyncConfig, TrainConfig
+    from repro_torch.core import distributed as dist
+    from repro_torch.data.synthetic import SyntheticLMDataset, lm_batch_iterator
+    from repro_torch.kernels import bitpack, ops, quant8, ref
+    from repro_torch.kernels.ops import tile_rows
+    from repro_torch.training import loop
+
+    on_card = device.type == "cuda"
+    t_phase = time.perf_counter()
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, length=100_000, seed=0)
+    path = {name: 0 for name in kernels.KERNELS}
+    summary = {}
+    for label, sync_kw, steps, n_groups, n_pods in TRAIN_RUNS:
+        tc = TrainConfig(model=cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, lr=3e-3,
+                         warmup_steps=10, total_steps=steps, sync=SyncConfig(**sync_kw))
+        spans = StepSpans(device)
+        probe = b2 = None
+        if sync_kw.get("compressor") == "qsgd_kernel":
+            probe = KernelProbe(quant8, "quant_dequant_2d", ref.quant_dequant_ref)
+            b2 = KernelProbe(bitpack, "quant_pack_2d", ref.quant_pack_ref)
+        b1_seen = []                 # B1 launches counted after each step
+
+        def on_step(step, state, metrics, label=label):
+            spans.take()
+            b1_seen.append(kernels.launch_counts()["quant_dequant_2d"])
+            if label.startswith("hier"):
+                check_replicas(step, state, want_equal=step % 2 == 1)
+
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        if probe is not None:
+            dist.quant8, ops._bp = probe, b2
+        kernels.reset_launch_counts()
+        try:
+            t0 = time.perf_counter()
+            with spans:
+                state, history = loop.train(
+                    cfg, tc, lm_batch_iterator(ds, TRAIN_BATCH, TRAIN_SEQ, seed=1),
+                    n_groups=n_groups, n_pods=n_pods, steps=steps, device=device,
+                    log=lambda m, label=label: log("train", f"{label}: {m}"),
+                    on_step=on_step)
+                if on_card:
+                    torch.cuda.synchronize(device)
+            run_s = time.perf_counter() - t0
+        finally:
+            if probe is not None:
+                dist.quant8, ops._bp = quant8, bitpack
+        counts = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+        for k, v in counts.items():
+            path[k] += v
+        losses = [h["loss"] for h in history]
+        gnorms = [h["grad_norm"] for h in history]
+        require(len(history) == steps and all(math.isfinite(v) for v in losses + gnorms),
+                f"{label}: non-finite loss or grad norm: {losses} {gnorms}")
+        split = spans.split()
+        med = {k: statistics.median(r[k] for r in split) for k in split[0]}
+        cost = dist.round_comm(tc.sync, cfg.param_count(), device=device)   # not counted
+        kernels.reset_launch_counts()
+        if probe is not None:
+            d = cfg.param_count()
+            chunks = -(-tile_rows(d) // dist.CHUNK_ROWS)
+            want = n_groups * chunks * steps
+            b1_steps = [n - m for n, m in zip(b1_seen, [0] + b1_seen[:-1])]
+            if on_card:
+                require(b1_steps == [n_groups * chunks] * steps,
+                        f"{label}: B1 launches per step {b1_steps}, expected "
+                        f"{n_groups * chunks} on every step")
+                require(counts["quant_dequant_2d"] == want,
+                        f"{label}: B1 launched {counts['quant_dequant_2d']} times, "
+                        f"expected {n_groups} groups x {chunks} chunks x {steps} steps = {want}")
+                require(counts["quant_pack_2d"] >= 1, f"{label}: B2 did not launch for the round report")
+                require(probe.checked is not None and probe.checked[0][0] == dist.CHUNK_ROWS,
+                        f"{label}: step 0's first B1 call was not a full chunk: {probe.checked}")
+            require(probe.checked is not None and probe.checked[1],
+                    f"{label}: B1 chunk of step 0's delta != plain: {probe.checked}")
+            probe_rows = tile_rows(min(d, PROBE_CAP))
+            require(b2.checked is not None and b2.checked[0] == (probe_rows, quant8.QBLOCK),
+                    f"{label}: the round report's first B2 call was not its "
+                    f"({probe_rows}, {quant8.QBLOCK}) probe: {b2.checked}")
+            require(b2.checked[1], f"{label}: B2 on the round report's probe != plain: {b2.checked}")
+            chunk_ms = probe.time_ms() if on_card else float("nan")   # not counted
+            kernels.reset_launch_counts()
+            rows = probe.checked[0][0]
+            summary["b1_chunk"] = {"rows": rows, "ms": chunk_ms,
+                                   "bound_ms": 1e3 * 12 * rows * 512 / HBM_BYTES_PER_S}
+            log("train", f"{label}: B1 {counts['quant_dequant_2d']} launches (= {n_groups} groups x "
+                         f"{chunks} chunks x {steps} steps; per step {b1_steps}), B2 "
+                         f"{counts['quant_pack_2d']} (round report; its probe {b2.checked[0]} == "
+                         f"plain bit for bit, max_abs_err {b2.checked[2]}); "
+                         f"step 0's first B1 chunk {probe.checked[0]} == plain bit for bit "
+                         f"(max_abs_err {probe.checked[2]}); B1 on that chunk {chunk_ms:.4f} ms "
+                         f"(bound {summary['b1_chunk']['bound_ms']:.4f} ms), x {chunks * n_groups} "
+                         f"a step = {chunk_ms * chunks * n_groups:.2f} ms")
+            del probe, b2
+        if label.startswith("hier"):
+            log("train", f"{label}: replicas differ after step 0, bitwise equal to each other "
+                         f"and to the bf16 anchor after steps 1 and 3")
+        summary[label] = {"step_ms": med, "peak_gib": peak / 2**30,
+                          "bytes_per_round": cost.total_bytes}
+        log("train", f"{label}: losses {[round(v, 4) for v in losses]}, grad norms "
+                     f"{[round(v, 4) for v in gnorms]}; median step {med['total']:.2f} ms = "
+                     f"forward+backward {med['grad']:.2f} + sync {med['sync']:.2f} + clip+update "
+                     f"{med['apply']:.2f} ({'CUDA events' if on_card else 'host clock'}); per "
+                     f"step total {[round(r['total'], 2) for r in split]} ms, sync "
+                     f"{[round(r['sync'], 2) for r in split]} ms; peak {peak / 2**30:.2f} GiB; "
+                     f"RoundCost {cost.total_bytes:.0f} B/round (inter {cost.inter_bytes:.0f}, "
+                     f"intra {cost.intra_bytes:.0f}); run {run_s:.2f} s; kernels "
+                     f"{json.dumps({k: v for k, v in counts.items() if v})}")
+        del state, history
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    log("train", f"phase {time.perf_counter() - t_phase:.2f} s; kernels {json.dumps(path)}; "
+                 f"summary {json.dumps(summary)}")
+    return path
+
+
+# ---------------------------------------------------------------------------
 def cuda_ms(fn, reps=5, warmup=1):
     """Median of ``reps`` CUDA-event timings of ``fn()``, after ``warmup``."""
     import torch
@@ -1071,8 +1317,13 @@ def main():
     codec_counts, d = phase_codec(get_config(ARCH), device, serve_payload_bytes)
     for kid, name, _, _, _ in CODEC_INFO:
         require(codec_counts[name] > 0, f"{kid} {name} was not launched on the codec path")
-    # each kernel's launches on the path that exercises it
+    train_counts = phase_train(get_config(ARCH), device)
+    for kid, name in (("B1", "quant_dequant_2d"), ("B2", "quant_pack_2d")):
+        require(train_counts[name] > 0, f"{kid} {name} was not launched on the train path")
+    # each kernel's launches on the paths that exercise it (B1/B2: serve + train)
     launches = {**counts, **{name: codec_counts[name] for _, name, _, _, _ in CODEC_INFO}}
+    for name in ("quant_dequant_2d", "quant_pack_2d"):
+        launches[name] += train_counts[name]
     kernels = phase_timing(rows, device, launches)
     kernels += phase_mask_timing(d, device, launches)
     kernels += phase_prune_timing(layer, prune_counts, selecting, prune_errs)

@@ -10,17 +10,24 @@ The hand-written CUDA kernels (``repro_torch.kernels``) launch for CUDA
 tensors and fall back to their plain PyTorch versions only for tensors that
 lie on the CPU.
 
-Ported so far: the personalized serving plane and SymWanda pruning.
+Ported so far: the personalized serving plane, SymWanda pruning, the wire
+codecs and the training path (EF-BV and hierarchical sync).
 
-  configs    ModelConfig + registry (h2o-danube-1.8b)
-  kernels    B1-B3: blockwise absmax quantize; B7/B8: N:M and fused
-             score-and-mask prune (CUDA C++, sm_90a) + plain refs
-  core       compressors (identity, top_k, qsgd, qsgd_kernel); symwanda
-  comm       buckets, wire codecs, byte ledger
+  configs    ModelConfig + registry (h2o-danube-1.8b); Level/Sync/TrainConfig
+  kernels    B1-B3, B6: blockwise absmax quantize; B4/B5: mask bit packing;
+             B7/B8: N:M and fused score-and-mask prune (CUDA C++, sm_90a)
+             + plain refs
+  core       compressors and the EF-BV calculus; distributed (EF-BV and
+             anchor-cascade sync); symwanda
+  comm       buckets, wire codecs, byte ledger, topology and tree models,
+             round accounting
+  faults     the counter-PRNG fault model
+  optim      AdamW / SGD over trees, schedules
+  data       synthetic LM corpus
   models     dense decoder: GQA with causal / SWA / chunked masks, ring
-             cache, full-sequence forward + CE loss
-  training   continuous batcher
+             cache, full-sequence forward + CE loss under autograd
+  training   train steps, loop, checkpoints; continuous batcher
   serve      delta store, block pool, per-slot delta engine
-  launch     greedy-decode and prune (loss ladder) entry points
+  launch     greedy-decode, prune (loss ladder) and train entry points
   interop    JAX-package parameters (as numpy) -> the port's tree
 """

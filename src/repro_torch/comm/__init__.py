@@ -1,4 +1,9 @@
-"""repro_torch.comm — bucket fusion, wire codecs and the byte ledger."""
+"""repro_torch.comm — bucket fusion, wire codecs, the byte ledger, the link
+topology models and the per-round accounting."""
+from repro_torch.comm.accounting import (LevelCost, RoundCost,
+                                         measured_payload_bits,
+                                         payload_bits_for, round_bits,
+                                         round_cost, round_ledger)
 from repro_torch.comm.buckets import (DEFAULT_BUCKET_SIZE, BucketLayout,
                                       bucketize, bucketize_groups,
                                       debucketize, debucketize_groups)
@@ -13,3 +18,8 @@ from repro_torch.comm.ledger import (BROADCAST_TAG, PAGE_IN_TAG, PAGE_OUT_TAG,
                                      RETRY_TAG, UPLOAD_TAG, WIRE_SCHEME_TAGS,
                                      CommLedger, CommRecord, known_tags,
                                      register_tag)
+from repro_torch.comm.topology import (DEFAULT_PROFILE, DEFAULT_TILE_BYTES,
+                                       PRESETS, CodecProfile, Link, Topology,
+                                       get_topology)
+from repro_torch.comm.tree import (TREE_PRESETS, TreeLevel, TreeTopology,
+                                   get_tree_topology, register_tree_topology)

@@ -65,15 +65,31 @@ def _layout(leaves, treedef, bucket_size: int, group_axis: bool) -> BucketLayout
                         sizes, tuple(offsets), acc, int(bucket_size))
 
 
-def bucketize(tree, bucket_size: int = DEFAULT_BUCKET_SIZE):
-    """Tree -> ((n_buckets, bucket_size) float32, BucketLayout)."""
+def bucket_layout(tree, bucket_size: int = DEFAULT_BUCKET_SIZE) -> BucketLayout:
+    """The layout ``bucketize(tree, bucket_size)`` would use."""
     leaves, treedef = tree_flatten(tree)
-    layout = _layout(leaves, treedef, bucket_size, group_axis=False)
-    flat = torch.empty(layout.padded_d, dtype=torch.float32,
-                       device=leaves[0].device)
-    for leaf, off, size in zip(leaves, layout.offsets, layout.sizes):
+    return _layout(leaves, treedef, bucket_size, group_axis=False)
+
+
+def bucketize_into(tree, out: torch.Tensor, layout: BucketLayout) -> torch.Tensor:
+    """Write ``tree`` into the preallocated f32 ``out`` (padded_d elements,
+    any shape) as ``bucketize`` lays it out, zero tail included; returns
+    ``out``.  How a step fills one group's row of a (G, nb, B) buffer
+    without a second copy of the tree."""
+    flat = out.view(-1)
+    for leaf, off, size in zip(tree_flatten(tree)[0], layout.offsets, layout.sizes):
         flat[off: off + size].copy_(leaf.reshape(-1))
     flat[layout.d:].zero_()
+    return out
+
+
+def bucketize(tree, bucket_size: int = DEFAULT_BUCKET_SIZE):
+    """Tree -> ((n_buckets, bucket_size) float32, BucketLayout)."""
+    leaves = tree_flatten(tree)[0]
+    layout = bucket_layout(tree, bucket_size)
+    flat = torch.empty(layout.padded_d, dtype=torch.float32,
+                       device=leaves[0].device)
+    bucketize_into(tree, flat, layout)
     return flat.view(layout.n_buckets, layout.bucket_size), layout
 
 

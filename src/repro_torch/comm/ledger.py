@@ -1,8 +1,11 @@
 """Byte-accurate communication ledger (the port's copy of
 ``repro/comm/ledger.py``): one record per message, or per streamed chunk, on
-one link, the tag registry, and the per-round/link/kind/tag aggregates.  The
-topology-based round-time simulation and the HLO cross-check come with the
-training path (ROADMAP, Queue 1).
+one link, the tag registry, the per-round/link/kind/tag aggregates and the
+round-time model over a ``comm.topology.Topology`` preset (a model of that
+preset's links, not a time measured on the card).  The JAX package's
+``crosscheck_hlo`` compares the ledger with XLA HLO collective statistics,
+which have no counterpart here: it waits for the multi-GPU slice (ROADMAP,
+Queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -102,6 +105,21 @@ class CommLedger:
 
     def bytes_by_tag(self) -> Dict[str, int]:
         return self._by("tag")
+
+    # -- simulation (a model of the topology preset) -------------------------
+    def round_time_s(self, topo, round: int) -> float:
+        """Modelled wall-clock of one round on ``topo``: links within a phase
+        run in parallel (each link serializes its own messages), phases run
+        back to back."""
+        by_phase: Dict[int, Dict[str, float]] = defaultdict(lambda: defaultdict(float))
+        for r in self.records:
+            if r.round != round:
+                continue
+            by_phase[r.phase][r.link] += topo.link(r.kind).time_s(r.nbytes)
+        return sum(max(links.values()) for links in by_phase.values()) if by_phase else 0.0
+
+    def total_time_s(self, topo) -> float:
+        return sum(self.round_time_s(topo, t) for t in range(self.n_rounds()))
 
     def summary(self) -> str:
         kinds = ";".join(f"{k}={v}" for k, v in sorted(self.bytes_by_kind().items()))

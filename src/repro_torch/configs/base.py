@@ -1,14 +1,17 @@
 """Model configs + architecture registry (the port's copy).
 
-A copy of ``repro/configs/base.py``'s model half: ``ModelConfig`` with
-``layer_kinds``, ``padded_vocab`` and ``reduced()``, the
-MoE/Mamba sub-configs its fields name, and ``register``/``get_config``.
-``SyncConfig``/``TrainConfig`` belong to the training slice and are not here.
+A copy of ``repro/configs/base.py``: ``ModelConfig`` with
+``layer_kinds``, ``padded_vocab``, ``param_count``, ``active_param_count``
+and ``reduced()``, the MoE/Mamba sub-configs its fields name, the training
+knobs ``LevelConfig``/``SyncConfig``/``TrainConfig`` (same fields, same
+defaults), and ``register``/``get_config``.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
-from typing import Optional, Sequence
+from dataclasses import dataclass, field, replace
+from typing import Optional, Sequence, Tuple
+
+from repro_torch.faults.model import FaultConfig
 
 ATTN_GLOBAL = "attn"          # full causal attention
 ATTN_SWA = "attn_swa"         # sliding-window attention
@@ -85,6 +88,58 @@ class ModelConfig:
         reps = -(-self.num_layers // len(pat))
         return (pat * reps)[: self.num_layers]
 
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings + blocks), used for 6ND."""
+        d, ff, v = self.d_model, self.d_ff, self.vocab_size
+        n_attn = sum(1 for k in self.layer_kinds() if k.startswith("attn"))
+        n_mamba = sum(1 for k in self.layer_kinds() if k == MAMBA)
+        p = v * d  # embed
+        if not self.tie_embeddings:
+            p += v * d
+        q = self.num_heads * self.head_dim
+        kv = self.num_kv_heads * self.head_dim
+        attn_p = d * q + 2 * d * kv + q * d
+        if self.qkv_bias:
+            attn_p += q + 2 * kv
+        p += n_attn * attn_p
+        if self.mamba is not None:
+            di = self.mamba.expand * d
+            nheads = di // self.mamba.head_dim
+            conv_dim = di + 2 * self.mamba.n_groups * self.mamba.d_state
+            in_dim = 2 * di + 2 * self.mamba.n_groups * self.mamba.d_state + nheads
+            mamba_p = d * in_dim + conv_dim * self.mamba.d_conv + di * d + nheads * 2 + di
+            p += n_mamba * mamba_p
+        n_blocks = self.num_layers
+        mlp_p = (3 if self.mlp_gated else 2) * d * ff
+        if self.moe is not None:
+            n_moe = len([i for i in range(n_blocks) if (i % self.moe_every) == self.moe_every - 1])
+            n_dense = n_blocks - n_moe
+            p += n_dense * mlp_p
+            p += n_moe * (self.moe.num_experts * mlp_p + d * self.moe.num_experts)
+            if self.moe.shared_expert:
+                p += n_moe * mlp_p
+        else:
+            p += n_blocks * mlp_p
+        p += (2 * n_blocks + 1) * d          # norms (2 per block + final)
+        if self.enc_layers:
+            de = self.enc_d_model or d
+            enc_attn = 4 * de * de
+            enc_mlp = (3 if self.mlp_gated else 2) * de * self.d_ff
+            p += self.enc_layers * (enc_attn + enc_mlp + 2 * de)
+            p += self.num_layers * (4 * d * de + d)   # decoder cross-attention
+        return int(p)
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: routed top_k + shared only)."""
+        if self.moe is None:
+            return self.param_count()
+        d, ff = self.d_model, self.d_ff
+        mlp_p = (3 if self.mlp_gated else 2) * d * ff
+        n_blocks = self.num_layers
+        n_moe = len([i for i in range(n_blocks) if (i % self.moe_every) == self.moe_every - 1])
+        inactive = n_moe * (self.moe.num_experts - self.moe.top_k) * mlp_p
+        return self.param_count() - int(inactive)
+
     def reduced(self) -> "ModelConfig":
         """CPU smoke-test variant: same family/topology, tiny dims (the same
         rule as the JAX package, so both reduce a config identically)."""
@@ -120,6 +175,66 @@ class ModelConfig:
             vision_tokens=min(self.vision_tokens, 4) if self.vision_tokens else 0,
             dtype="float32",
         )
+
+
+@dataclass(frozen=True)
+class LevelConfig:
+    """One level of an aggregation tree's sync cascade (leaf-most first),
+    paired by order with the levels of the ``comm.tree`` topology named by
+    ``SyncConfig.topology``.  Periods must be nested: each level's period a
+    multiple of the level below."""
+    name: str
+    period: int = 1
+    compressor: str = "identity"      # see core/compressors.py registry
+    compress_ratio: float = 0.05
+    quant_bits: int = 8
+
+
+@dataclass(frozen=True)
+class SyncConfig:
+    """How gradients (or replicas) are synchronized across worker groups.
+
+    ``mode``: dense (plain mean), efbv (EF-BV compressed delta sync, Ch. 2),
+    ef21 (nu = lambda), diana (nu = 1), local (Scafflix-style replicas that
+    sync every ``sync_period`` steps), hier (Cohort-Squeeze: replicas per pod
+    with a compressed inter-pod sync every ``sync_period`` steps, or an
+    aggregation-tree cascade when ``levels`` is set).
+    """
+    mode: str = "dense"
+    compressor: str = "topk_block"    # see core/compressors.py registry
+    compress_ratio: float = 0.05      # k/d for sparsifiers
+    quant_bits: int = 8
+    sync_period: int = 1              # Scafflix E[1/p]
+    personalization_alpha: float = 1.0  # FLIX alpha (1 = no personalization)
+    # link topology preset (comm.topology.PRESETS, or comm.tree.TREE_PRESETS
+    # when ``levels`` is set) that turns per-round bytes into a modelled time
+    topology: str = "v5p_superpod"
+    levels: Optional[Tuple[LevelConfig, ...]] = None
+    # bucket fusion (comm.buckets): one fused compressor pass over the whole
+    # tree; 0 = the per-leaf path
+    bucket_size: int = 1 << 16
+    # streamed codec tiles in the modelled round time; 0 = monolithic
+    stream_tile_bytes: int = 1 << 20
+    # fault injection (faults.model); None or all-zero rates keep every sync
+    # path bit-identical to the faultless one
+    faults: Optional[FaultConfig] = None
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    model: ModelConfig
+    seq_len: int = 4096
+    global_batch: int = 256
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    optimizer: str = "adamw"
+    grad_clip: float = 1.0
+    sync: SyncConfig = field(default_factory=SyncConfig)
+    remat: str = "dots"               # none | dots | full
+    grad_accum: int = 1               # microbatch accumulation steps
+    seed: int = 0
 
 
 _REGISTRY: dict = {}

@@ -6,8 +6,10 @@ position-in-period are stacked over the ``num_layers / P`` periods under
 ``blocks/pos{j}``, exactly the JAX package's tree, so the two flatten to the
 same delta block space.  Where JAX scans over periods, the port loops.
 
-The port runs decoder-only attention models, forward only (no backward).
-MoE, Mamba and encoder-decoder / vision configs raise
+The port runs decoder-only attention models.  ``forward_train`` and
+``loss_fn`` run under autograd (the trainer's backward); ``remat`` "dots"
+or "full" wraps each period of blocks in ``torch.utils.checkpoint``, which
+changes memory, not values.  MoE, Mamba and encoder-decoder / vision configs raise
 ``NotImplementedError``: they are ROADMAP Queue 1, item 4 (other
 architectures).
 """
@@ -23,7 +25,7 @@ from repro_torch.models.layers import (cross_entropy_loss, embed, init_embed,
                                        init_mlp, init_rmsnorm, mlp, rmsnorm,
                                        unembed)
 from repro_torch.utils.device import make_generator, resolve_device
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 def _lcm(a: int, b: int) -> int:
@@ -138,38 +140,64 @@ def _ring_from_prefill(kv: dict, cfg_attn: dict, S: int, cache_len: int) -> dict
     return {"k": ring(kv["k"]), "v": ring(kv["v"])}
 
 
-def _trunk(params, cfg: ModelConfig, tokens: torch.Tensor, on_kv=None) -> torch.Tensor:
-    """Embed ``tokens`` (B, S) and run every block over the whole sequence
-    -> final-normed hidden states (B, S, D).  ``on_kv(j, cfg_attn, kv)``
-    receives each attention layer's full K/V, in layer order."""
+def _period_body(cfg: ModelConfig, P: int, pos_kinds, x, bps, on_kv=None):
+    """One period of blocks over the whole sequence.  ``on_kv(j, cfg_attn,
+    kv)`` receives each attention layer's full K/V, in layer order."""
+    for j in range(P):
+        bp, acfg = bps[f"pos{j}"], _attn_cfg(cfg, pos_kinds[j])
+        h, kv = attn_lib.attention_prefill(bp["attn"], rmsnorm(bp["norm1"], x, cfg.norm_eps),
+                                           cfg_attn=acfg)
+        if on_kv is not None:
+            on_kv(j, acfg, kv)
+        x = x + h
+        if cfg.d_ff > 0:
+            x = x + mlp(bp["mlp"], rmsnorm(bp["norm2"], x, cfg.norm_eps),
+                        act=cfg.mlp_act, gated=cfg.mlp_gated)
+    return x
+
+
+def _trunk(params, cfg: ModelConfig, x: torch.Tensor, on_kv=None,
+           remat: str = "none") -> torch.Tensor:
+    """Run every block over embedded inputs ``x`` (B, S, D) -> final-normed
+    hidden states.  ``remat`` other than "none" recomputes each period in
+    the backward (``torch.utils.checkpoint``); it takes no ``on_kv``."""
     require_supported(cfg)
     P, n_periods, pos_kinds, _ = period_info(cfg)
-    x = embed(params["embed"], tokens)
     for i in range(n_periods):
         bps = _period(params["blocks"], i)
-        for j in range(P):
-            bp, acfg = bps[f"pos{j}"], _attn_cfg(cfg, pos_kinds[j])
-            h, kv = attn_lib.attention_prefill(bp["attn"], rmsnorm(bp["norm1"], x, cfg.norm_eps),
-                                               cfg_attn=acfg)
-            if on_kv is not None:
-                on_kv(j, acfg, kv)
-            x = x + h
-            if cfg.d_ff > 0:
-                x = x + mlp(bp["mlp"], rmsnorm(bp["norm2"], x, cfg.norm_eps),
-                            act=cfg.mlp_act, gated=cfg.mlp_gated)
+        if remat == "none" or not _needs_grad(x, bps):
+            x = _period_body(cfg, P, pos_kinds, x, bps, on_kv)
+        else:
+            # the blocks draw no random numbers: no RNG state to save, and
+            # saving it would synchronize with the card every period
+            x = torch.utils.checkpoint.checkpoint(
+                _period_body, cfg, P, pos_kinds, x, bps, use_reentrant=False,
+                preserve_rng_state=False)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
-def forward_train(params, cfg: ModelConfig, batch: dict):
+def _needs_grad(x: torch.Tensor, bps: dict) -> bool:
+    """Whether autograd will record this period (else remat is moot)."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in tree_leaves(bps)))
+
+
+def forward_train(params, cfg: ModelConfig, batch: dict, remat: str = "dots"):
     """Full-sequence forward -> (logits (B, S, V_pad) at every position,
-    aux loss 0).  Forward only: nothing here needs a backward yet."""
-    x = _trunk(params, cfg, batch["tokens"])
+    aux loss 0).  ``batch["inputs_embeds"]``, when present, replaces the
+    token embedding (the grad-accumulation step passes it)."""
+    if remat not in ("none", "dots", "full"):
+        raise ValueError(f"unknown remat {remat!r}")
+    x = batch["inputs_embeds"] if "inputs_embeds" in batch else \
+        embed(params["embed"], batch["tokens"])
+    x = _trunk(params, cfg, x, remat=remat)
     return unembed(params["embed"], x), torch.zeros((), device=x.device)
 
 
-def loss_fn(params, cfg: ModelConfig, batch: dict):
-    """-> (loss, {"ce", "aux"}): mean next-token CE over the valid vocab."""
-    logits, aux = forward_train(params, cfg, batch)
+def loss_fn(params, cfg: ModelConfig, batch: dict, remat: str = "dots"):
+    """-> (loss, {"ce", "aux"}): mean next-token CE over the valid vocab
+    (dense models carry no auxiliary loss)."""
+    logits, aux = forward_train(params, cfg, batch, remat)
     ce = cross_entropy_loss(logits, batch["targets"], valid_vocab=cfg.vocab_size)
     return ce, {"ce": ce, "aux": aux}
 
@@ -190,7 +218,7 @@ def prefill(params, cfg: ModelConfig, batch: dict, cache_len: int = 0):
         caches[f"pos{j}"]["k"].append(ring["k"])
         caches[f"pos{j}"]["v"].append(ring["v"])
 
-    x = _trunk(params, cfg, tokens, on_kv=keep)
+    x = _trunk(params, cfg, embed(params["embed"], tokens), on_kv=keep)
     logits = unembed(params["embed"], x[:, -1:])
     layers = {name: {k: torch.stack(v) for k, v in c.items()} for name, c in caches.items()}
     return logits, {"layers": layers, "pos": int(S)}

@@ -5,7 +5,10 @@
 off: no allocation beyond the call, no clock read.  When on (``enable()`` or
 ``REPRO_TRACE=1``), finished spans land in a bounded ring buffer.  Spans wrap
 host-side phases; they do not synchronize the device, so around CUDA work
-they time the enqueue unless the caller synchronizes.
+they time the enqueue unless the caller synchronizes.  ``enable(
+device_events=True)`` also records a CUDA event on the current stream as
+each span starts and ends (``Span.events``); after a synchronize,
+``device_ms(span)`` is the card's time between the two.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 _TRUTHY = ("1", "true", "yes", "on")
 DEFAULT_CAPACITY = 1 << 16
@@ -26,6 +29,7 @@ class Span:
     ts_us: float
     dur_us: float
     tags: Dict[str, object] = field(default_factory=dict)
+    events: Tuple = ()       # (start, end) CUDA events with device events on
 
 
 class Tracer:
@@ -55,6 +59,7 @@ class Tracer:
 
 _tracer = Tracer()
 _enabled = os.environ.get("REPRO_TRACE", "").lower() in _TRUTHY
+_device_events = False
 
 
 def get_tracer() -> Tracer:
@@ -65,14 +70,29 @@ def enabled() -> bool:
     return _enabled
 
 
-def enable() -> None:
-    global _enabled
-    _enabled = True
+def enable(device_events: bool = False) -> None:
+    """Record spans; ``device_events`` adds a CUDA event at each end (needs
+    a card)."""
+    global _enabled, _device_events
+    _enabled, _device_events = True, bool(device_events)
 
 
 def disable() -> None:
-    global _enabled
-    _enabled = False
+    global _enabled, _device_events
+    _enabled, _device_events = False, False
+
+
+def _cuda_event():
+    import torch
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def device_ms(sp: Span) -> float:
+    """The card's milliseconds between a span's two events (the caller has
+    synchronized)."""
+    return sp.events[0].elapsed_time(sp.events[1])
 
 
 class _NullSpan:
@@ -92,25 +112,29 @@ NULL_SPAN = _NullSpan()
 
 
 class _SpanCtx:
-    __slots__ = ("name", "tags", "_t0_ns")
+    __slots__ = ("name", "tags", "_t0_ns", "_ev0")
 
     def __init__(self, name: str, tags: dict):
         self.name = name
         self.tags = tags
         self._t0_ns = 0
+        self._ev0 = None
 
     def tag(self, **kv) -> "_SpanCtx":
         self.tags.update(kv)
         return self
 
     def __enter__(self):
+        if _device_events:
+            self._ev0 = _cuda_event()
         self._t0_ns = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
         t1_ns = time.perf_counter_ns()
+        events = (self._ev0, _cuda_event()) if self._ev0 is not None else ()
         _tracer.record(Span(self.name, (self._t0_ns - _tracer.epoch_ns) / 1e3,
-                            (t1_ns - self._t0_ns) / 1e3, self.tags))
+                            (t1_ns - self._t0_ns) / 1e3, self.tags, events))
         return False
 
 
