@@ -24,17 +24,6 @@ the script exits nonzero without printing a result:
            the payload bytes of the misses; B1-B3 must have launched.
   ref      the port's forward on the card agrees with the CPU on a small
            f32 model (stated tolerance), greedy tokens equal
-  prune    the second path: SymWanda pruning of full-width h2o-danube-1.8b
-           (bf16, seed 0) through its CLI (launch/prune.py): the loss ladder
-           of magnitude / wanda / ria / symwanda at 50% and 60%, wanda +
-           R^2-DSnoT and wanda 2:4; B8 and B7 must have launched, every B8
-           launch in its selecting mode (tau=None).  Then on all 24 w_in
-           layers, for every mode and sparsity: B8 (tau given) and B7 bit
-           for bit equal to their plain versions on the same tau / scores,
-           the selecting B8's (out, mask, tau) bit for bit equal to
-           scored_args' torch.topk tau + the plain mask, the B8 wanda mask
-           equal to core.symwanda.prune's, and every B7 disagreement with
-           mask_nm inside a group of tied scores
   codec    the third path: the wire codecs at the full width of the delta
            space (1,831,202,816 coordinates).  (a) A DeltaStore with top_k
            (1%) on the sparse_bitmap wire stores two norm-only users (B4 per
@@ -50,7 +39,7 @@ the script exits nonzero without printing a result:
            tile [0, d).  (c) B6 (ops.stream_quantize_pack) at full width.
            B4, B5 and B6 must have launched.  Then, not counted: B4/B5 and
            B6 against their plain versions at full width, and B6 == B2
-  train    the fourth path: training.loop.train at the full width of
+  train    the chain's first half: training.loop.train at the full width of
            h2o-danube-1.8b (bf16, random weights from seed 0), on a
            SyntheticLMDataset (seed 0), seq 64, a global batch of 2
            sequences, AdamW: dense for 2 steps (the baseline); efbv +
@@ -60,9 +49,39 @@ the script exits nonzero without printing a result:
            bit for bit; hier + qsgd with 2 replicas, sync_period 2, for 4
            steps, where the replicas must differ after step 0 and be bitwise
            equal to each other and to the bf16 anchor after steps 1 and 3.
-           Per run: each step's loss and grad norm (finite), the median step
-           split by CUDA events into forward + backward, sync and clip +
-           update, the peak device memory and the RoundCost bytes per round
+           The efbv run's params are saved with save_checkpoint to a
+           temporary directory once its optimizer state is freed.  Per run:
+           each step's loss and grad norm (finite), the median step split by
+           CUDA events into forward + backward, sync and clip + update, the
+           peak device memory and the RoundCost bytes per round
+  prune    the chain's second half: SymWanda pruning of the train phase's
+           checkpoint (full-width h2o-danube-1.8b, bf16, trained by the efbv
+           run) through its CLI (launch/prune.py --ckpt): the loss ladder of
+           magnitude / wanda / ria / symwanda at 50% and 60%, wanda +
+           R^2-DSnoT and wanda 2:4; B8 and B7 must have launched, every B8
+           launch in its selecting mode (tau=None).  The CLI's load must equal
+           the tensors the train run ended with bit for bit (save and load
+           seconds and bytes printed); the directory is removed after the
+           phase.  Then on all 24 trained w_in layers, for every mode and
+           sparsity: B8 (tau given) and B7 bit for bit equal to their plain
+           versions on the same tau / scores, the selecting B8's (out, mask,
+           tau) bit for bit equal to scored_args' torch.topk tau + the plain
+           mask, the B8 wanda mask equal to core.symwanda.prune's, and every
+           B7 disagreement with mask_nm inside a group of tied scores
+  prune_wide  the prune CLI at the full width of qwen1.5-4b (QKV bias;
+           random bf16 weights from seed 0): exactly 40 B7 and 320 B8
+           launches, all selecting; the peak, the ladder's seconds and the
+           dense loss
+  paper    the paper's federated algorithms (no kernel on this path): the
+           examples.federated_logreg runs (EF-BV / EF21 / DIANA under
+           rand_k(0.1), 800 rounds; Scafflix at alpha 0.1 / 0.5 / 0.9, 400
+           rounds) and FedP3 at bench_fedp3's OPU3 configuration (25 rounds),
+           their draws from CPU generators moved to the card; the same calls
+           on the CPU; communicated rounds, message and ledger bytes and
+           uploaded floats exactly equal, objective traces and FedP3's final
+           test loss within rtol 1e-4, FedP3's accuracies within 2 of 600
+           test points; ms per round on both; SPPM's (numpy) Fig 5.1 cost row
+           once
   timing   B1-B3 and B6 (beside B2) at the serve path's shape, B4/B5 at the
            codec path's d, and B7/B8 (both modes, three score modes) at one
            full-width w_in (2560 x 6912 bf16) on the card (CUDA events,
@@ -80,8 +99,10 @@ import json
 import os
 import re
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # the delta and materialized paths must get identical cuBLAS results
@@ -121,6 +142,10 @@ CODEC_INFO = (
     ("B6", "stream_quant_pack_2d", "src/repro/kernels/stream.py:110", KERNEL_SOURCE, 7),
 )
 RAGGED_D = (1, 31, 33, 4097, 5 * 512 + 37)
+WIDE_ARCH = "qwen1.5-4b"       # the second full-width prune ladder
+# paper phase: FedP3 rounds and layer sizes (benchmarks/bench_fedp3.py), and
+# the card-vs-CPU tolerance on objective traces and losses (summation order)
+PAPER_ROUNDS, FEDP3_SIZES, PAPER_RTOL = 25, (24, 64, 64, 48, 6), 1e-4
 # train phase: (label, SyncConfig fields, steps, n_groups, n_pods)
 TRAIN_SEQ, TRAIN_BATCH = 64, 2
 TRAIN_RUNS = (("dense", {"mode": "dense"}, 2, 1, 1),
@@ -519,44 +544,79 @@ def phase_ref(device):
 
 
 # ---------------------------------------------------------------------------
-def phase_prune(cfg, device):
-    """The pruning path, then its checks.  Returns (launch counts of the
-    path, {kernel: max |kernel - plain|}, (layer 0's w_in, calibration X))."""
+def cli_args(cfg, device):
+    """The prune CLI's flags for ``cfg`` on ``device`` (the card is its
+    default; a reduced config is ``--reduced``)."""
+    from repro_torch.configs import get_config
+    argv = ["--arch", cfg.name, "--seed", "0"]
+    if device.type != "cuda":
+        argv += ["--device", "cpu"]
+    if cfg != get_config(cfg.name):
+        require(cfg == get_config(cfg.name).reduced(), "a config the CLI cannot name")
+        argv.append("--reduced")
+    return argv
+
+
+def phase_prune(cfg, device, saved):
+    """The pruning path on the train phase's checkpoint (``saved``), then its
+    checks.  Returns (launch counts of the path, selecting B8 launches,
+    {kernel: max |kernel - plain|}, (layer 0's trained w_in, calibration X))."""
     import math
     import torch
     from repro_torch import kernels
     from repro_torch.core import symwanda as sw
     from repro_torch.kernels import nm_prune, ops, ref, wanda_score
     from repro_torch.launch import prune as prune_cli
-    from repro_torch.models import init_params
-
-    from repro_torch.configs import get_config
+    from repro_torch.utils.tree import tree_flatten_with_path
 
     on_card = device.type == "cuda"
     mem = MemMarks(device)
-    # -- main path: the CLI a user runs, on the card (its default device)
-    argv = ["--arch", cfg.name, "--seed", "0"] + ([] if on_card else ["--device", "cpu"])
-    if cfg != get_config(cfg.name):
-        require(cfg == get_config(cfg.name).reduced(), "a config the CLI cannot name")
-        argv.append("--reduced")
+    # -- main path: the CLI a user runs, on the card (its default device),
+    #    pruning the trained checkpoint
+    argv = cli_args(cfg, device) + ["--ckpt", saved["path"]]
+    seen = {}                   # the CLI's own load and ladder, timed apart
+    load, ladder_fn = prune_cli.load_params, prune_cli.loss_ladder
+
+    def timed_load(*a, **kw):
+        seen["params"], seen["load_s"] = timed(device, lambda: load(*a, **kw))
+        mem.mark("load")
+        return seen["params"]
+
+    def timed_ladder(*a, **kw):
+        out, seen["ladder_s"] = timed(device, lambda: ladder_fn(*a, **kw))
+        return out
+
     kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    ladder = prune_cli.main(argv)
-    if on_card:
-        torch.cuda.synchronize(device)
+    prune_cli.load_params, prune_cli.loss_ladder = timed_load, timed_ladder
+    try:
+        ladder = prune_cli.main(argv)
+    finally:
+        prune_cli.load_params, prune_cli.loss_ladder = load, ladder_fn
     counts = kernels.launch_counts()
     selecting = wanda_score.wanda_prune_2d.selecting
     mem.mark("ladder")
     require(all(math.isfinite(v) for v in ladder.values()), f"non-finite loss: {ladder}")
     require(selecting == counts["wanda_prune_2d"],
             f"{counts['wanda_prune_2d'] - selecting} of the ladder's B8 launches took tau")
-    log("prune", f"loss ladder of {len(ladder)} rows in {time.perf_counter() - t0:.2f} s; "
-                 f"dense {ladder['dense']:.4f} vs ln V {math.log(cfg.vocab_size):.4f}; "
-                 f"kernels {json.dumps(counts)}, B8 selecting {selecting}")
+    log("prune", f"loss ladder of {len(ladder)} rows on the trained checkpoint in "
+                 f"{seen['ladder_s']:.2f} s; dense {ladder['dense']:.4f} vs ln V "
+                 f"{math.log(cfg.vocab_size):.4f}; kernels {json.dumps(counts)}, B8 selecting "
+                 f"{selecting}; ladder {json.dumps(ladder)}")
 
-    # -- checks (their launches are not counted)
+    # -- checks (their launches are not counted): the CLI's load equals the
+    #    trained tensors bit for bit, then B7/B8 on the trained w_in layers
+    params = seen.pop("params")
+    got, want = tree_flatten_with_path(params)[0], tree_flatten_with_path(saved["params"])[0]
+    require([k for k, _ in got] == [k for k, _ in want], "loaded keys != trained keys")
+    for (key, a), (_, b) in zip(got, want):
+        require(a.device.type == device.type and bits_equal(a, b.to(device)),
+                f"{key}: loaded != the trained tensor")
+    load_s = seen["load_s"]
+    log("prune", f"checkpoint: saved in {saved['save_s']:.2f} s, loaded by the CLI in "
+                 f"{load_s:.2f} s ({saved['bytes']} B on disk, {saved['bytes'] / load_s / 1e9:.2f} "
+                 f"GB/s); {len(got)} leaves bit for bit equal to the tensors the train run "
+                 f"ended with")
     t0 = time.perf_counter()
-    params = init_params(0, cfg, device=device)
     X = prune_cli.calib_acts(params, cfg, prune_cli.calib_batch(cfg, 0, device))
     stack = params["blocks"]["pos0"]["mlp"]["w_in"]
     errs = {"nm_prune_2d": 0.0, "wanda_prune_2d": 0.0}
@@ -604,8 +664,8 @@ def phase_prune(cfg, device):
     if on_card:
         torch.cuda.synchronize(device)
     mem.mark("checks")
-    log("prune", f"{n_checked} kernel calls on {stack.shape[0]} w_in {tuple(stack.shape[1:])} "
-                 f"{stack.dtype} layers bit for bit equal to the plain versions, and "
+    log("prune", f"{n_checked} kernel calls on {stack.shape[0]} trained w_in "
+                 f"{tuple(stack.shape[1:])} {stack.dtype} layers bit for bit equal to the plain versions, and "
                  f"{n_selecting} selecting B8 calls' (out, mask, tau) equal to scored_args' "
                  f"torch.topk + plain; B8 wanda "
                  f"masks == symwanda.prune; B7 vs mask_nm: {nm_differ} differing groups, "
@@ -619,6 +679,44 @@ def phase_prune(cfg, device):
     if on_card:
         torch.cuda.empty_cache()
     return counts, selecting, errs, layer
+
+
+def phase_prune_wide(cfg, device):
+    """The prune CLI on the random weights of a second full-width decoder
+    (qwen1.5-4b: QKV bias, 40 w_in layers of 2560 x 6912): B7 once per
+    layer, B8 eight times per layer (three modes at two sparsities, and the
+    wanda of each R^2-DSnoT row), every B8 launch selecting.  Returns the
+    launch counts."""
+    import math
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import wanda_score
+    from repro_torch.launch import prune as prune_cli
+
+    on_card = device.type == "cuda"
+    mem = MemMarks(device)
+    kernels.reset_launch_counts()
+    ladder, ladder_s = timed(device, lambda: prune_cli.main(cli_args(cfg, device)))
+    counts = kernels.launch_counts()
+    selecting = wanda_score.wanda_prune_2d.selecting
+    kernels.reset_launch_counts()
+    mem.mark("ladder")
+    require(all(math.isfinite(v) for v in ladder.values()), f"non-finite loss: {ladder}")
+    n = cfg.num_layers
+    if on_card:
+        require(counts["nm_prune_2d"] == n, f"B7 launched {counts['nm_prune_2d']}, not {n}")
+        require(counts["wanda_prune_2d"] == selecting == 8 * n,
+                f"B8 launched {counts['wanda_prune_2d']} ({selecting} selecting), not {8 * n}")
+    peak = f"; peak {mem.marks[0][1] / 2**30:.2f} GiB" if on_card else ""
+    log("prune_wide", f"{cfg.name} ({cfg.param_count()} params, {cfg.dtype}): loss ladder of "
+                      f"{len(ladder)} rows in {ladder_s:.2f} s{peak}; dense "
+                      f"{ladder['dense']:.4f} vs ln V {math.log(cfg.vocab_size):.4f}; kernels "
+                      f"{json.dumps({k: v for k, v in counts.items() if v})}, B8 selecting "
+                      f"{selecting}")
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -890,9 +988,12 @@ def check_replicas(step, state, want_equal):
         require(not all(same), f"hier step {step}: replicas equal before any sync")
 
 
-def phase_train(cfg, device):
+def phase_train(cfg, device, ckpt):
     """The training path at full width: three runs through
-    ``training.loop.train``.  Returns the launch counts of the path."""
+    ``training.loop.train``; the efbv + qsgd_kernel run's params are saved
+    with ``save_checkpoint`` to ``ckpt`` (after its optimizer and sync state
+    are freed).  Returns (the launch counts of the path, {"path", "params"
+    (a host copy of the saved tensors), "save_s", "bytes"})."""
     import math
     import torch
     from repro_torch import kernels
@@ -903,6 +1004,8 @@ def phase_train(cfg, device):
     from repro_torch.kernels import bitpack, ops, quant8, ref
     from repro_torch.kernels.ops import tile_rows
     from repro_torch.training import loop
+    from repro_torch.training.checkpoint import save_checkpoint
+    from repro_torch.utils.tree import tree_leaves, tree_map
 
     on_card = device.type == "cuda"
     t_phase = time.perf_counter()
@@ -995,6 +1098,21 @@ def phase_train(cfg, device):
                          f"(bound {summary['b1_chunk']['bound_ms']:.4f} ms), x {chunks * n_groups} "
                          f"a step = {chunk_ms * chunks * n_groups:.2f} ms")
             del probe, b2
+        if label.startswith("efbv"):
+            # the chain: these trained params are what the prune phase prunes
+            trained = state.params
+            del state
+            gc.collect()
+            _, save_s = timed(device, lambda: save_checkpoint(ckpt, trained, step=steps))
+            nbytes = os.path.getsize(ckpt + ".npz")
+            saved = {"path": ckpt, "save_s": save_s, "bytes": nbytes,
+                     "params": tree_map(lambda a: a.to("cpu"), trained)}
+            log("train", f"{label}: saved {len(tree_leaves(trained))} leaves, "
+                         f"{sum(a.numel() for a in tree_leaves(trained))} params "
+                         f"({tree_leaves(trained)[0].dtype}) in {save_s:.2f} s: {nbytes} B "
+                         f"on disk ({nbytes / save_s / 1e9:.2f} GB/s)")
+            del trained
+            state = None
         if label.startswith("hier"):
             log("train", f"{label}: replicas differ after step 0, bitwise equal to each other "
                          f"and to the bf16 anchor after steps 1 and 3")
@@ -1015,7 +1133,113 @@ def phase_train(cfg, device):
         torch.cuda.empty_cache()
     log("train", f"phase {time.perf_counter() - t_phase:.2f} s; kernels {json.dumps(path)}; "
                  f"summary {json.dumps(summary)}")
-    return path
+    return path, saved
+
+
+# ---------------------------------------------------------------------------
+def close(got, want, rtol, what):
+    """Require |got - want| <= rtol |want| elementwise; returns the largest
+    relative difference."""
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    require(got.shape == want.shape, f"{what}: shapes {got.shape} != {want.shape}")
+    rel = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-300)))
+    require(rel <= rtol, f"{what}: relative difference {rel:.3g} > {rtol}")
+    return rel
+
+
+def fedp3_run(device):
+    """bench_fedp3's OPU3 configuration (10 clients, 5 a round, 3 trained
+    layers, global prune ratio 0.9, 4 local steps, lr 0.2) for PAPER_ROUNDS
+    rounds on the Dirichlet split, its draws from one CPU generator ->
+    (accuracies, uploaded floats, final test loss, seconds)."""
+    import torch
+    from repro_torch.core import fedp3
+    from repro_torch.data.federated import dirichlet_split
+
+    X, y = fedp3.make_classification(n=2400, d=24, nclass=6, seed=0)
+    Xte, yte = fedp3.make_classification(n=600, d=24, nclass=6, seed=1)
+    idx = dirichlet_split(y, 10, alpha=0.5, seed=0)
+    cfg = fedp3.FedP3Config(n_clients=10, clients_per_round=5, layers_per_client=3,
+                            global_prune_ratio=0.9, local_steps=4, lr=0.2, seed=0)
+    draws = fedp3.TorchDraws(torch.Generator().manual_seed(0))
+    (acc, up, params), sec = timed(device, lambda: fedp3.fedp3_train(
+        cfg, [X[i] for i in idx], [y[i] for i in idx], FEDP3_SIZES, PAPER_ROUNDS, Xte, yte,
+        draws=draws, device=device))
+    with torch.no_grad():
+        loss = float(fedp3.xent(params, torch.as_tensor(Xte, device=device),
+                                torch.as_tensor(yte, device=device).long(), 6))
+    return acc, up, loss, sec
+
+
+def phase_paper(device):
+    """The paper's federated algorithms on the card, a smoke load: the
+    federated_logreg example's EF-BV / EF21 / DIANA (rand_k(0.1), 800
+    rounds) and Scafflix (alpha 0.1 / 0.5 / 0.9, 400 rounds) runs, and
+    FedP3 at bench_fedp3's OPU3 configuration; the same calls on the CPU
+    with the same draws; the two runs held to each other (communicated
+    rounds and ledger bytes exactly, objective traces within PAPER_RTOL,
+    FedP3's accuracy within 2 of 600 test points).  SPPM (numpy) once.
+    Returns nothing: no kernel is on this path."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.comm.ledger import CommLedger
+    from repro_torch.examples import cohort_squeeze, federated_logreg as fl
+
+    cpu = torch.device("cpu")
+    kernels.reset_launch_counts()
+    runs = {}
+    for dev in (device, cpu):
+        say = (lambda msg, dev=dev: log("paper", f"{dev.type}:{msg}"))
+        pb = fl.problem(dev)
+        efbv, scafflix = fl.efbv_runs(pb, dev, log=say), fl.scafflix_runs(pb, dev, log=say)
+        runs[dev.type] = dict(efbv=efbv, scafflix=scafflix, fedp3=fedp3_run(dev),
+                              f_star=pb["f_star"])
+    card, host = runs[device.type], runs["cpu"]
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    require(not launched, f"the paper path launched kernels: {launched}")
+    for mode, r in card["efbv"].items():
+        h = host["efbv"][mode]
+        rel = close(r["trace"], h["trace"], PAPER_RTOL, f"efbv {mode} trace")
+        require(r["msg_bytes"] == h["msg_bytes"], f"efbv {mode}: message bytes differ")
+        rounds = len(r["trace"])
+        require(CommLedger.from_rounds(r["msg_bytes"], rounds).cumulative_bytes() ==
+                CommLedger.from_rounds(h["msg_bytes"], rounds).cumulative_bytes(),
+                f"efbv {mode}: ledger bytes differ")
+        require(abs(r["hit"] - h["hit"]) <= 1, f"efbv {mode}: gap-{fl.GAP:g} rounds "
+                                               f"{r['hit']} vs {h['hit']}")
+        log("paper", f"EF-BV {mode:5s}: {rounds} rounds, {1e3 * r['seconds'] / rounds:.3f} "
+                     f"ms/round on the card ({1e3 * h['seconds'] / rounds:.3f} on the CPU); "
+                     f"final gap {r['trace'][-1] - card['f_star']:.3e}, first round under "
+                     f"{fl.GAP:g} {r['hit'] + 1 if r['hit'] >= 0 else 'none'} (CPU "
+                     f"{h['hit'] + 1 if h['hit'] >= 0 else 'none'}); {r['msg_bytes']} B a "
+                     f"message, {rounds * r['msg_bytes']} B ledger over all rounds on both; "
+                     f"trace max rel diff card/CPU {rel:.2e}")
+    for alpha, r in card["scafflix"].items():
+        h = host["scafflix"][alpha]
+        require(np.array_equal(r["comms"], h["comms"]),
+                f"scafflix alpha={alpha}: communicated rounds differ")
+        rel = close(r["trace"], h["trace"], PAPER_RTOL, f"scafflix alpha={alpha} trace")
+        rounds = len(r["trace"])
+        log("paper", f"Scafflix alpha={alpha}: {rounds} rounds, {int(r['comms'].sum())} "
+                     f"communicated (equal on both), {1e3 * r['seconds'] / rounds:.3f} "
+                     f"ms/round on the card ({1e3 * h['seconds'] / rounds:.3f} on the CPU); "
+                     f"final gap {r['trace'][-1] - r['fstar']:.3e}; trace max rel diff "
+                     f"{rel:.2e}")
+    (acc, up, loss, sec), (hacc, hup, hloss, hsec) = card["fedp3"], host["fedp3"]
+    require(np.array_equal(up, hup), "fedp3: uploaded floats differ")
+    require(float(np.max(np.abs(acc - hacc))) <= 2 / 600 + 1e-9,
+            f"fedp3: accuracies {acc} vs {hacc}")
+    rel = close(loss, hloss, PAPER_RTOL, "fedp3 final test loss")
+    log("paper", f"FedP3 OPU3: {PAPER_ROUNDS} rounds, {1e3 * sec / PAPER_ROUNDS:.2f} ms/round "
+                 f"on the card ({1e3 * hsec / PAPER_ROUNDS:.2f} on the CPU); accuracy "
+                 f"{acc[-1]:.4f} (CPU {hacc[-1]:.4f}), test loss {loss:.5f} (rel diff "
+                 f"{rel:.2e}); uploaded {int(up[-1])} floats = {int(4 * up[-1])} B (equal)")
+    prob, x_star = cohort_squeeze.problem()
+    row, sppm_s = timed(cpu, lambda: cohort_squeeze.fig_5_1(prob, x_star, 50.0))
+    log("paper", f"SPPM-AS (numpy, host) Fig 5.1 row, gamma 50: total cost TK by K "
+                 f"{json.dumps({k: v for k, v in row.items()})} in {sppm_s:.2f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1189,7 +1413,7 @@ def peak_delta(device, fn):
     return peak - before, peak - after
 
 
-def phase_prune_timing(layer, counts, selecting, errs):
+def phase_prune_timing(layer, counts, selecting, errs, wide_counts):
     """B7 and B8 (both modes) at one full-width w_in: times (median of 5
     queued runs), bounds and the kernels JSON entries; then prune_scored's
     old route (scored_args + tau-given B8) against its selecting route,
@@ -1281,15 +1505,20 @@ def phase_prune_timing(layer, counts, selecting, errs):
     del S
     entries = []
     for (kid, name, replaces), key in zip(PRUNE_INFO, ("2:4", "select wanda")):
+        # launches on both prune paths: the trained h2o-danube checkpoint and
+        # the qwen1.5-4b ladder (every B8 launch of both selecting)
         entry = {"id": kid, "name": name, "route": "cuda", "source": PRUNE_SOURCE,
-                 "replaces": replaces, "launches": counts[name],
+                 "replaces": replaces, "launches": counts[name] + wide_counts[name],
+                 "launches_by_path": {f"prune {ARCH} (trained)": counts[name],
+                                      f"prune {WIDE_ARCH}": wide_counts[name]},
                  "max_abs_err": errs[name], **{f: rows[key][f] for f in (
                      "ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None}
         if name == "wanda_prune_2d":
             # the prune path runs the selecting mode; both modes, every score
             # mode; torch.topk on the plain scores is the selection's yardstick
             entry["modes"] = {
-                "selecting": {"launches": selecting, **{m: rows[f"select {m}"]
+                "selecting": {"launches": selecting + wide_counts[name],
+                              **{m: rows[f"select {m}"]
                                                         for m in B8_MODES}},
                 "tau_given": {"launches": counts[name] - selecting,
                               **{m: rows[f"given {m}"] for m in B8_MODES}}}
@@ -1311,22 +1540,32 @@ def main():
     for kid, name, _, _ in KERNEL_INFO:
         require(counts[name] > 0, f"{kid} {name} was not launched on the main path")
     phase_ref(device)
-    prune_counts, selecting, prune_errs, layer = phase_prune(get_config(ARCH), device)
-    for kid, name, _ in PRUNE_INFO:
-        require(prune_counts[name] > 0, f"{kid} {name} was not launched on the prune path")
     codec_counts, d = phase_codec(get_config(ARCH), device, serve_payload_bytes)
     for kid, name, _, _, _ in CODEC_INFO:
         require(codec_counts[name] > 0, f"{kid} {name} was not launched on the codec path")
-    train_counts = phase_train(get_config(ARCH), device)
-    for kid, name in (("B1", "quant_dequant_2d"), ("B2", "quant_pack_2d")):
-        require(train_counts[name] > 0, f"{kid} {name} was not launched on the train path")
+    # the chain: train at full width, save the efbv run's params, prune them
+    ckpt_dir = tempfile.mkdtemp()
+    try:
+        train_counts, saved = phase_train(get_config(ARCH), device,
+                                          os.path.join(ckpt_dir, "ckpt"))
+        for kid, name in (("B1", "quant_dequant_2d"), ("B2", "quant_pack_2d")):
+            require(train_counts[name] > 0, f"{kid} {name} was not launched on the train path")
+        prune_counts, selecting, prune_errs, layer = phase_prune(get_config(ARCH), device, saved)
+    finally:
+        shutil.rmtree(ckpt_dir)
+    del saved
+    gc.collect()
+    for kid, name, _ in PRUNE_INFO:
+        require(prune_counts[name] > 0, f"{kid} {name} was not launched on the prune path")
+    wide_counts = phase_prune_wide(get_config(WIDE_ARCH), device)
+    phase_paper(device)
     # each kernel's launches on the paths that exercise it (B1/B2: serve + train)
     launches = {**counts, **{name: codec_counts[name] for _, name, _, _, _ in CODEC_INFO}}
     for name in ("quant_dequant_2d", "quant_pack_2d"):
         launches[name] += train_counts[name]
     kernels = phase_timing(rows, device, launches)
     kernels += phase_mask_timing(d, device, launches)
-    kernels += phase_prune_timing(layer, prune_counts, selecting, prune_errs)
+    kernels += phase_prune_timing(layer, prune_counts, selecting, prune_errs, wide_counts)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -77,6 +77,16 @@ class CommLedger:
         self.records.extend(other.records)
         return self
 
+    @classmethod
+    def from_rounds(cls, nbytes, n_rounds: int, link: str = "client->server",
+                    kind: str = "inter", phase: int = 0) -> "CommLedger":
+        """One constant-size message per round: the ledger of a
+        fixed-payload run (size-invariant compressors)."""
+        led = cls()
+        for t in range(n_rounds):
+            led.record(t, link, nbytes, kind=kind, phase=phase)
+        return led
+
     @property
     def total_bytes(self) -> int:
         return sum(r.nbytes for r in self.records)
@@ -87,6 +97,14 @@ class CommLedger:
 
     def n_rounds(self) -> int:
         return (max(r.round for r in self.records) + 1) if self.records else 0
+
+    def cumulative_bytes(self) -> List[int]:
+        """Running total after each round 0..n_rounds-1 (Fig 2.2 x-axis)."""
+        per, acc, out = self.bytes_by_round(), 0, []
+        for t in range(self.n_rounds()):
+            acc += per.get(t, 0)
+            out.append(acc)
+        return out
 
     def _by(self, attr: str) -> Dict:
         out: Dict = defaultdict(int)

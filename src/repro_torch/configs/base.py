@@ -260,5 +260,8 @@ def list_configs() -> list:
 def _ensure_loaded():
     if _REGISTRY:
         return
-    from repro_torch.configs import h2o_danube_1_8b  # noqa: F401  (registers)
+    # the dense decoders the port runs (registers each); the MoE, Mamba,
+    # encoder-decoder and vision configs wait for ROADMAP Queue 1, item 4
+    from repro_torch.configs import (chameleon_34b, h2o_danube_1_8b,  # noqa: F401
+                                     nemotron_4_15b, qwen1_5_4b, qwen1_5_110b)
 

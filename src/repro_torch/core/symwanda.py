@@ -9,19 +9,16 @@ Scores for pruning a weight matrix W (out = X @ W, X: (tokens, d_in)):
   symwanda    beta * wanda-term + (1-beta) * output-side term |W_ij| ||Y_:j||
   stochria    RIA from a row subsample of the calibration batch
 
-Masking: unstructured (per output) and N:M structured (2:4).
+Masking: unstructured (global or per-output) and N:M structured (2:4).
 R^2-DSnoT: training-free prune-and-grow with a relative-importance
 regularized decision boundary.  dtypes follow the JAX package's promotion:
 a bf16 W scored against f32 norms gives f32 scores, masks and ``W * mask``.
 
-Randomness is injected: ``stochria`` takes its sampled rows as ``idx``.  The
-fused kernel backends of ``mask_nm`` and ``prune`` are ``kernels.ops.prune_nm``
-/ ``prune_scored``.
-
-Only the options that ``launch/prune.py`` varies are kept: the l2 activation
-norm, per-output masks, and R^2-DSnoT with the reference's regularization
-strength and iteration count as its one knob.  The JAX package's lp sweep,
-global mask, vanilla-DSnoT switch and given-``Y`` symwanda have no caller here.
+Randomness is injected: ``stochria`` takes its sampled rows as ``idx`` or
+draws them from an explicit ``torch.Generator``.  The fused kernel backends
+of ``mask_nm`` and ``prune`` are ``kernels.ops.prune_nm`` / ``prune_scored``
+(B7 / B8), which ``launch/prune.py`` calls; this module is the plain torch
+the JAX package's module is, with the same options and defaults.
 """
 from __future__ import annotations
 
@@ -39,11 +36,17 @@ EPS = 1e-12
 # ---------------------------------------------------------------------------
 # Activation statistics from a calibration batch
 # ---------------------------------------------------------------------------
-def act_norms(X: torch.Tensor) -> torch.Tensor:
-    """Per-input-channel l2 norms ||X_:i||_2 of calibration activations
-    (T, d_in) in f32: the fused prune's own ``input_norms``, so the module and
-    the kernel path score alike."""
-    return input_norms(X)
+def act_norms(X: torch.Tensor, p: float = 2.0) -> torch.Tensor:
+    """Per-input-channel lp norms ||X_:i||_p of calibration activations
+    (T, d_in) in f32 (the paper's App. E.3.2/E.3.3 sweep of p: 1, 2, inf).
+    p=2 is the fused prune's own ``input_norms``, so the module and the
+    kernel path score alike."""
+    if p == 2.0:
+        return input_norms(X)
+    Xa = X.float().abs()
+    if p == math.inf:
+        return Xa.amax(0)
+    return Xa.pow(p).sum(0).pow(1.0 / p)
 
 
 # ---------------------------------------------------------------------------
@@ -53,33 +56,41 @@ def score_magnitude(W, X=None, **kw):
     return W.abs()
 
 
-def score_wanda(W, X, **kw):
-    return W.abs() * act_norms(X)[:, None]
+def score_wanda(W, X, p: float = 2.0, **kw):
+    return W.abs() * act_norms(X, p)[:, None]
 
 
-def score_ria(W, X, alpha: float = 0.5, **kw):
+def score_ria(W, X, alpha: float = 0.5, p: float = 2.0, **kw):
     aW = W.abs()
     row_sum = aW.sum(1, keepdim=True)       # sum over outputs for input i
     col_sum = aW.sum(0, keepdim=True)       # sum over inputs for output j
     ri = aW / row_sum.clamp_min(EPS) + aW / col_sum.clamp_min(EPS)
-    return ri * act_norms(X)[:, None].pow(alpha)
+    return ri * act_norms(X, p)[:, None].pow(alpha)
 
 
-def score_symwanda(W, X, beta: float = 0.5, **kw):
+def score_symwanda(W, X, beta: float = 0.5, Y: Optional[torch.Tensor] = None, **kw):
     """Symmetric objective: input-side ||X_:i|| and output-side ||Y_:j||
-    terms (Y = X @ W), each normalized by its mean."""
+    terms, each normalized by its mean.  Y defaults to the layer's
+    calibration output X @ W."""
     inp = W.abs() * act_norms(X)[:, None]
-    out = W.abs() * act_norms(X @ W)[None, :]
+    out = W.abs() * act_norms(X @ W if Y is None else Y)[None, :]
     inp = inp / inp.mean().clamp_min(EPS)
     out = out / out.mean().clamp_min(EPS)
     return beta * inp + (1.0 - beta) * out
 
 
-def score_stochria(W, X, idx: Optional[torch.Tensor] = None, alpha: float = 0.5, **kw):
-    """RIA from the sampled calibration rows ``idx`` (the JAX package draws
-    ``sample_frac * T`` distinct rows; the port takes them injected)."""
+def score_stochria(W, X, sample_frac: float = 0.1, idx: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None, alpha: float = 0.5, **kw):
+    """RIA from sampled calibration rows: ``idx`` when given (how the tests
+    inject the JAX package's draw of ``max(1, int(sample_frac * T))``
+    distinct rows), else that many rows of a random permutation drawn from
+    ``generator``."""
     if idx is None:
-        raise ValueError("stochria needs its sampled rows: idx=")
+        if generator is None:
+            raise ValueError("stochria needs its sampled rows: idx= or generator=")
+        k = max(1, int(sample_frac * X.shape[0]))
+        idx = torch.randperm(X.shape[0], generator=generator,
+                             device=generator.device)[:k]
     return score_ria(W, X[idx.to(X.device)], alpha=alpha)
 
 
@@ -95,12 +106,17 @@ SCORES = {
 # ---------------------------------------------------------------------------
 # Masking
 # ---------------------------------------------------------------------------
-def mask_unstructured(S: torch.Tensor, sparsity: float):
-    """Keep the top (1-sparsity) fraction of every output column by score
-    (every score at or above the column's k-th), as Wanda prunes."""
-    k = max(1, int(round((1 - sparsity) * S.shape[0])))
-    thresh = torch.topk(S.T, k).values[:, -1]          # per column j
-    return (S >= thresh[None, :]).to(S.dtype)
+def mask_unstructured(S: torch.Tensor, sparsity: float, per_output: bool = True):
+    """Keep the top (1-sparsity) fraction by score (every score at or above
+    the k-th): of every output column, as Wanda prunes, or of the whole
+    matrix (``per_output=False``)."""
+    if per_output:
+        k = max(1, int(round((1 - sparsity) * S.shape[0])))
+        thresh = torch.topk(S.T, k).values[:, -1]          # per column j
+        return (S >= thresh[None, :]).to(S.dtype)
+    k = max(1, int(round((1 - sparsity) * S.numel())))
+    thresh = torch.topk(S.reshape(-1), k).values[-1]
+    return (S >= thresh).to(S.dtype)
 
 
 def mask_nm(S: torch.Tensor, n: int = 2, m: int = 4):
@@ -143,28 +159,31 @@ def symmetric_error(W, W_pruned, X, Z) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # R^2-DSnoT: training-free prune-and-grow fine-tuning (Sect. 6.3.6)
 # ---------------------------------------------------------------------------
-DSNOT_REG = 0.5     # relative-importance regularization strength
-
-
 @dataclass(frozen=True)
 class DSnoTConfig:
     iters: int = 20
+    swap_frac: float = 0.02        # as the reference: declared, read by neither
+                                   # package (one swap per column per iteration)
+    reg: float = 0.5               # relative-importance regularization strength
+    use_ria_boundary: bool = True  # R^2 variant; False = vanilla DSnoT
 
 
-def r2_dsnot(W, mask, X, cfg: DSnoTConfig = DSnoTConfig()):
+def r2_dsnot(W, mask, X, cfg: DSnoTConfig = DSnoTConfig(), ria_alpha: float = 0.5):
     """Iteratively swap one pruned and one kept weight per output column
     when the swap reduces the reconstruction error.
 
     Growth: the pruned weight whose reinstatement best cancels the output
-    residual; pruning: the kept weight of least (error increase + reg *
-    relative importance).  Ties go to the first row (``argmin``), as
+    residual; pruning: the kept weight of least error increase, plus
+    ``cfg.reg`` * relative importance (RIA at ``ria_alpha``) when
+    ``cfg.use_ria_boundary``.  Ties go to the first row (``argmin``), as
     ``jax.lax.top_k`` breaks them.  Returns (W * mask, mask)."""
     Xf = X.float()
     Xn2 = Xf.square().sum(0)                                   # (d_in,) ||X_:i||^2
     Wf = W.float()
-    ria = score_ria(W, X)
-    ria = ria / ria.mean().clamp_min(EPS)
-    reg_term = DSNOT_REG * Wf.abs() * Xn2.sqrt()[:, None] * ria
+    if cfg.use_ria_boundary:
+        ria = score_ria(W, X, alpha=ria_alpha)
+        ria = ria / ria.mean().clamp_min(EPS)
+        reg_term = cfg.reg * Wf.abs() * Xn2.sqrt()[:, None] * ria
     quad = Wf.square() * Xn2[:, None]
     cols = torch.arange(W.shape[1], device=W.device)
 
@@ -175,7 +194,9 @@ def r2_dsnot(W, mask, X, cfg: DSnoTConfig = DSnoTConfig()):
         XtR = Xf.T @ R                                         # (d_in, d_out)
         kept = mask > 0
         grow_score = torch.where(kept, math.inf, -2.0 * Wf * XtR + quad)
-        prune_delta = 2.0 * Wf * XtR + quad + reg_term     # R^2: regularized boundary
+        prune_delta = 2.0 * Wf * XtR + quad
+        if cfg.use_ria_boundary:
+            prune_delta = prune_delta + reg_term       # R^2: regularized boundary
         prune_score = torch.where(kept, prune_delta, math.inf)
         grow_idx, prune_idx = grow_score.argmin(0), prune_score.argmin(0)
         grow_val, prune_val = grow_score[grow_idx, cols], prune_score[prune_idx, cols]

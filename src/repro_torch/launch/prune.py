@@ -2,13 +2,17 @@
 
   PYTHONPATH=src python -m repro_torch.launch.prune --arch h2o-danube-1.8b
   ... --reduced --device cpu               # a tiny config on the CPU
+  ... --ckpt results/ckpt                  # prune trained params
 
 Counterpart of ``examples/prune_llm.py``: collect calibration activations
 (layer 0's ``norm1`` of an embedded 8 x 64 token batch), prune every MLP
 ``w_in`` with magnitude / Wanda / RIA / SymWanda at 50% and 60% sparsity
 and with Wanda under 2:4, apply R^2-DSnoT after Wanda, and print each
 method's LM loss beside the dense one.  Weights are random, from
-``--seed`` (no training step is ported yet).
+``--seed``, or the trained params of ``--ckpt``: a checkpoint written by
+``launch.train --ckpt`` or by the JAX package's ``save_checkpoint``, whose
+leaves must match what ``--arch`` builds (else it raises); of a replica run
+(``local`` / ``hier``, a leading replica axis) it takes replica 0.
 
 Routes: wanda, ria and symwanda run the fused score-and-mask kernel (B8,
 ``ops.prune_scored``); an N:M pattern runs B7 (``ops.prune_nm``) on the
@@ -55,7 +59,8 @@ def calib_acts(params, cfg, batch) -> torch.Tensor:
 def prune_layer(W, X, method: str, sparsity: float,
                 structured_nm: Optional[tuple] = None):
     """Prune one (d_in, d_out) weight -> (pruned W in W's dtype, mask).
-    (``stochria`` needs its sampled rows: call ``sw.prune`` with ``idx=``.)"""
+    (``stochria`` needs its sampled rows: call ``sw.prune`` with ``idx=`` or
+    ``generator=``.)"""
     if structured_nm is not None:
         return ops.prune_nm(W, sw.SCORES[method](W, X), *structured_nm)
     if method in FUSED:
@@ -116,11 +121,27 @@ def loss_ladder(params, cfg, batch, log=print) -> dict:
     return out
 
 
+def load_params(path: str, cfg, device) -> dict:
+    """The params of checkpoint ``path`` in the tree, dtypes and shapes that
+    ``cfg`` builds on ``device``; replica 0 of a replica run's checkpoint.
+    A missing, extra or differently shaped leaf raises ValueError."""
+    from repro_torch.models import init_params
+    from repro_torch.training.checkpoint import load_checkpoint, stored_shape
+    from repro_torch.utils.tree import tree_leaves
+
+    like = init_params(0, cfg, device="meta")       # the structure, no storage
+    stacked = len(stored_shape(path)) == tree_leaves(like)[0].dim() + 1
+    return load_checkpoint(path, like, replica=0 if stacked else None, device=device)[0]
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt", default=None,
+                    help="prune the params of this checkpoint (default: random "
+                         "weights from --seed)")
     ap.add_argument("--device", default=None,
                     help="torch device; default: the CUDA card")
     args = ap.parse_args(argv)
@@ -133,7 +154,10 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    params = init_params(args.seed, cfg, device=device)
+    if args.ckpt:
+        params = load_params(args.ckpt, cfg, device)
+    else:
+        params = init_params(args.seed, cfg, device=device)
     return loss_ladder(params, cfg, calib_batch(cfg, args.seed, device))
 
 

@@ -89,10 +89,12 @@ def init_params(seed: int, cfg: ModelConfig, device=None) -> dict:
     """Random weights from ``seed`` in the JAX package's tree layout:
     ``{"embed": {"tok", "unembed"}, "final_norm", "blocks": {"pos{j}": ...}}``
     with each block leaf stacked over periods.  (Not the JAX package's
-    values: load those with ``repro_torch.interop.params_from_jax``.)"""
+    values: load those with ``repro_torch.interop.params_from_jax``.)  On
+    the ``meta`` device it builds the tree's structure alone, shapes and
+    dtypes without storage, which a checkpoint is loaded into."""
     require_supported(cfg)
     device = resolve_device(device)
-    gen = make_generator(seed, device)
+    gen = None if device.type == "meta" else make_generator(seed, device)
     dtype = model_dtype(cfg)
     P, n_periods, _, _ = period_info(cfg)
     params = {"embed": init_embed(gen, cfg.padded_vocab(), cfg.d_model, dtype,

@@ -19,12 +19,14 @@ from __future__ import annotations
 
 import json
 import os
+import zipfile
+from typing import Optional
 
 import numpy as np
 import torch
 
-from repro_torch.interop import numpy_from_tensor, tensor_from_numpy
-from repro_torch.utils.tree import tree_flatten_with_path, tree_flatten, tree_unflatten
+from repro_torch.interop import numpy_from_tensor
+from repro_torch.utils.tree import tree_flatten_with_path, tree_unflatten
 
 
 def _base(path: str) -> str:
@@ -45,23 +47,63 @@ def save_checkpoint(path: str, tree, step: int = 0) -> None:
         json.dump({"step": step, "manifest": manifest, "dtypes": dtypes}, f)
 
 
-def _leaf(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+def _leaf(arr: np.ndarray, like: torch.Tensor, device) -> torch.Tensor:
+    """One stored array as a tensor of ``like``'s dtype on ``device`` (the
+    array's own memory until the move: no host copy)."""
+    arr = np.ascontiguousarray(arr)
     if like.dtype == torch.bfloat16:
         if arr.dtype.itemsize != 2:
             raise ValueError(f"bf16 leaf stored as {arr.dtype}")
-        bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy())
-        return bits.view(torch.bfloat16).reshape(like.shape).to(like.device)
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
     if arr.dtype.kind == "V":
         raise ValueError(f"a {like.dtype} leaf stored as {arr.dtype}")
-    return tensor_from_numpy(arr, like.device).to(like.dtype).reshape(like.shape)
+    return torch.from_numpy(arr).to(device=device, dtype=like.dtype)
 
 
-def load_checkpoint(path: str, like_tree):
+def stored_shape(path: str, i: int = 0) -> tuple:
+    """The shape of leaf ``i`` as stored, from its ``.npy`` header alone (no
+    data is read)."""
+    with zipfile.ZipFile(_base(path) + ".npz") as z, z.open(f"leaf_{i}.npy") as f:
+        version = np.lib.format.read_magic(f)
+        read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                else np.lib.format.read_array_header_2_0)
+        return tuple(read(f)[0])
+
+
+def load_checkpoint(path: str, like_tree, replica: Optional[int] = None, device=None):
     """Restore into the structure, dtypes, shapes and devices of
-    ``like_tree`` -> (tree, step)."""
-    data = np.load(_base(path) + ".npz")
-    leaves, treedef = tree_flatten(like_tree)
-    restored = [_leaf(data[f"leaf_{i}"], leaf) for i, leaf in enumerate(leaves)]
+    ``like_tree`` -> (tree, step).
+
+    The checkpoint must hold exactly ``like_tree``'s leaves: its manifest's
+    key paths equal the tree's, and every stored shape equals its leaf's;
+    otherwise ValueError, and nothing is re-initialized.  ``replica`` reads
+    a checkpoint of a replica run (``local`` / ``hier``), whose every leaf
+    carries a leading replica axis: it takes that replica.  ``device``
+    places every leaf there instead of on its like leaf's device (for a
+    ``meta``-device ``like_tree``, a structure without storage)."""
     with open(_base(path) + ".json") as f:
         meta = json.load(f)
+    flat, treedef = tree_flatten_with_path(like_tree)
+    want = {f"leaf_{i}": keystr for i, (keystr, _) in enumerate(flat)}
+    if meta["manifest"] != want:
+        extra = sorted(set(meta["manifest"].values()) - set(want.values()))
+        missing = sorted(set(want.values()) - set(meta["manifest"].values()))
+        raise ValueError(f"{path}: the checkpoint's keys are not the tree's "
+                         f"(only in the checkpoint: {extra[:4]}; only in the tree: "
+                         f"{missing[:4]}; or another order)")
+    restored = []
+    with np.load(_base(path) + ".npz") as data:
+        for i, (keystr, like) in enumerate(flat):
+            arr = data[f"leaf_{i}"]
+            shape = tuple(like.shape)
+            if replica is not None:
+                if arr.ndim != len(shape) + 1 or not 0 <= replica < arr.shape[0]:
+                    raise ValueError(f"{path}: {keystr} has shape {arr.shape}, not "
+                                     f"(replicas > {replica}, *{shape})")
+                arr = arr[replica]
+            if tuple(arr.shape) != shape:
+                raise ValueError(f"{path}: {keystr} has shape {tuple(arr.shape)}, "
+                                 f"the tree's leaf {shape}")
+            restored.append(_leaf(arr, like, like.device if device is None else device))
+            del arr
     return tree_unflatten(treedef, restored), meta["step"]

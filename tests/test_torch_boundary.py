@@ -34,6 +34,14 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     assert out.strip() == "[]"
 
 
+def test_the_scan_covers_every_ported_module():
+    for name in ("repro_torch.core.ef_bv", "repro_torch.core.scafflix",
+                 "repro_torch.core.fedp3", "repro_torch.core.sppm",
+                 "repro_torch.data.federated", "repro_torch.configs.qwen1_5_4b",
+                 "repro_torch.examples.federated_logreg", "repro_torch.examples.prune_llm"):
+        assert name in MODULES, name
+
+
 def _imports(path: Path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
@@ -70,6 +78,12 @@ def test_entry_points_default_to_the_card():
     p = encode(make_compressor("identity"), torch.ones(4))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         decode(p)
+    from repro_torch.core.ef_bv import efbv_init
+    from repro_torch.core.fedp3 import FedP3Config, fedp3_train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        efbv_init(4, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fedp3_train(FedP3Config(), [], [], [4, 2], 1, None, None)
 
 
 def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):

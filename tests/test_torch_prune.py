@@ -20,6 +20,10 @@ does.  Tolerances:
   mask, every disagreement within 1e-6 * tau_j of the threshold (the input
   norms are summed in another order).
 
+``launch.prune --ckpt`` loads a JAX-package checkpoint and a port one bit
+for bit, takes replica 0 of a replica-stacked one, and raises on a missing,
+extra or differently shaped leaf.
+
 Tests marked ``cuda`` need an NVIDIA card and skip without one.
 """
 import numpy as np
@@ -29,6 +33,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.core import symwanda as sw
 from repro_torch.kernels import nm_prune, ops, ref, wanda_score
+from repro_torch.utils.tree import tree_map
 
 torch.set_num_threads(2)
 SHAPES = [(256, 128), (384, 256)]
@@ -450,6 +455,113 @@ def test_prune_wrappers_reject_what_the_kernels_do_not_take():
         wanda_score.wanda_prune_2d(w, xn, torch.ones(256)[::2], mode="wanda")
     with pytest.raises(ValueError):                                  # neither CPU nor CUDA
         wanda_score.wanda_prune_2d(w.to("meta"), xn.to("meta"), tau.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# launch.prune --ckpt: pruning trained params
+# ---------------------------------------------------------------------------
+CKPT_ARCH = "qwen1.5-4b"
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    """Reduced qwen1.5-4b params of the JAX package (f32, as ``reduced()``
+    sets; bf16 leaves cross as in ``test_torch_train``'s checkpoint test)
+    -> (the JAX tree, the same tree as the port's CPU tensors)."""
+    import jax
+    from repro.configs import get_config
+    from repro.models import init_params
+    from repro_torch.interop import params_from_jax
+    jp = init_params(jax.random.PRNGKey(5), get_config(CKPT_ARCH).reduced())
+    return jp, params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+
+
+def _cfg(arch=CKPT_ARCH):
+    from repro_torch.configs import get_config
+    return get_config(arch).reduced()
+
+
+def _assert_tree_bits_equal(got, want):
+    from repro_torch.utils.tree import tree_flatten_with_path
+    g, w = tree_flatten_with_path(got)[0], tree_flatten_with_path(want)[0]
+    assert [k for k, _ in g] == [k for k, _ in w]
+    for (key, a), (_, b) in zip(g, w):
+        assert a.dtype == b.dtype and _bits_equal(a, b), key
+
+
+def _cli(path):
+    from repro_torch.launch import prune as tprune
+    return tprune.main(["--arch", CKPT_ARCH, "--reduced", "--device", "cpu", "--ckpt", str(path)])
+
+
+def test_prune_cli_loads_a_jax_checkpoint_bit_for_bit(jax_params, tmp_path):
+    from repro.training.checkpoint import save_checkpoint as jsave
+    from repro_torch.launch import prune as tprune
+    jp, tp = jax_params
+    jsave(str(tmp_path / "jax"), jp, step=3)
+    loaded = tprune.load_params(str(tmp_path / "jax"), _cfg(), "cpu")
+    _assert_tree_bits_equal(loaded, tp)
+    out = _cli(tmp_path / "jax")
+    # the ladder prunes the loaded params, not random ones from --seed
+    batch = tprune.calib_batch(_cfg(), 0, "cpu")
+    assert out["dense"] == tprune.lm_loss(tp, _cfg(), batch)
+    assert out["dense"] != tprune.main(["--arch", CKPT_ARCH, "--reduced", "--device", "cpu"])["dense"]
+    assert all(np.isfinite(v) for v in out.values()) and len(out) == 12
+
+
+def test_prune_cli_takes_replica_0_of_a_replica_checkpoint(jax_params, tmp_path):
+    import jax
+    import jax.numpy as jnp
+    from repro.training.checkpoint import save_checkpoint as jsave
+    from repro_torch.launch import prune as tprune
+    jp, tp = jax_params
+    stacked = jax.tree_util.tree_map(lambda a: jnp.stack([a, a * 2 + 1]), jp)
+    jsave(str(tmp_path / "hier"), stacked, step=4)
+    _assert_tree_bits_equal(tprune.load_params(str(tmp_path / "hier"), _cfg(), "cpu"), tp)
+    assert np.isfinite(_cli(tmp_path / "hier")["wanda@0.5"])
+
+
+def test_prune_cli_loads_what_the_port_trainer_saved(tmp_path):
+    from repro_torch.launch import prune as tprune
+    from repro_torch.launch import train as ttrain
+    for sync in ("efbv", "hier"):                  # hier: a replica axis
+        path = tmp_path / sync
+        state, _ = ttrain.main(["--arch", CKPT_ARCH, "--reduced", "--device", "cpu",
+                                "--steps", "2", "--batch", "2", "--seq", "16",
+                                "--sync", sync, "--ckpt", str(path)])
+        want = state.params
+        if sync == "hier":
+            want = tree_map(lambda a: a[0], want)
+        _assert_tree_bits_equal(tprune.load_params(str(path), _cfg(), "cpu"), want)
+    assert np.isfinite(_cli(tmp_path / "efbv")["magnitude@0.5"])
+
+
+def test_prune_cli_raises_on_a_mismatched_checkpoint(jax_params, tmp_path):
+    import jax
+    from repro.configs import get_config
+    from repro.models import init_params
+    from repro.training.checkpoint import save_checkpoint as jsave
+    from repro_torch.launch import prune as tprune
+    jp, _ = jax_params
+    # another architecture: no QKV biases
+    jsave(str(tmp_path / "other"),
+          init_params(jax.random.PRNGKey(0), get_config("h2o-danube-1.8b").reduced()))
+    with pytest.raises(ValueError, match="only in the tree.*'bk'"):
+        _cli(tmp_path / "other")
+    # a leaf missing, and one too many
+    fewer = {k: v for k, v in jp.items() if k != "final_norm"}
+    jsave(str(tmp_path / "fewer"), fewer)
+    with pytest.raises(ValueError, match="keys"):
+        _cli(tmp_path / "fewer")
+    jsave(str(tmp_path / "more"), {**jp, "extra": jp["final_norm"]})
+    with pytest.raises(ValueError, match="keys"):
+        _cli(tmp_path / "more")
+    # one leaf of another shape
+    bad = jax.tree_util.tree_map(lambda a: a, jp)
+    bad["final_norm"] = {k: v[:-1] for k, v in jp["final_norm"].items()}
+    jsave(str(tmp_path / "bad"), bad)
+    with pytest.raises(ValueError, match="final_norm"):
+        _cli(tmp_path / "bad")
 
 
 # ---------------------------------------------------------------------------

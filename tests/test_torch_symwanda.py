@@ -8,7 +8,12 @@ Tolerances, with their reasons:
   ``sqrt`` in torch but ``pow`` on XLA's CPU);
 * masks built from the SAME score matrix: bitwise (both keep every score at
   or above the k-th);
-* R^2-DSnoT, 20 iterations on (256, 128): the same final mask;
+* R^2-DSnoT, 20 iterations on (256, 128): the same final mask, also with
+  the reference's options (vanilla DSnoT, ``reg``, ``ria_alpha``);
+* the reference's other options (``p`` = 1, 3 and inf, a given ``Y``,
+  ``sample_frac``): scores rtol 1e-5 (a max is exact); masks from them at
+  least 99.9% equal, each disagreement within 1e-6 of its column's k-th
+  score; the global mask (``per_output=False``) from equal scores bitwise;
 * reconstruction / symmetric error: rtol 1e-5;
 * ``forward_train``: logits atol 2e-5 and CE within 1e-5 on the reduced f32
   h2o-danube, from the same parameters (``params_from_jax``);
@@ -165,6 +170,128 @@ def test_wanda_beats_magnitude(layer):
          for m in ("magnitude", "wanda", "ria", "symwanda")}
     assert e["wanda"] < e["magnitude"]
     assert e["ria"] < e["magnitude"] and e["symwanda"] < e["magnitude"]
+
+
+# ---------------------------------------------------------------------------
+# the reference's options: lp norms, given Y, global masks, stochria's
+# sample_frac, the DSnoT switches and ria_alpha
+# ---------------------------------------------------------------------------
+def _mask_agreement(got, want, S, tau_rtol=1e-6):
+    """ROADMAP's rule for masks from scores reduced in another order: at
+    least 99.9% equal, and every disagreement within ``tau_rtol`` of its
+    column's k-th score."""
+    differ = got != want
+    assert differ.mean() <= 1e-3
+    if differ.any():
+        k = int(want.sum(0).min())
+        tau = -np.sort(-S, axis=0)[k - 1]
+        gap = np.abs(S - tau[None, :])
+        assert (gap[differ] <= tau_rtol * np.broadcast_to(np.abs(tau), S.shape)[differ]).all()
+
+
+@pytest.mark.parametrize("p", [1.0, 2.0, 3.0, float("inf")])
+def test_act_norms_lp_match_jax(jx, layer, p):
+    _, jnp, jsw = jx
+    _, X = layer
+    got, want = sw.act_norms(_t(X), p).numpy(), np.asarray(jsw.act_norms(jnp.asarray(X), p))
+    if p == float("inf"):
+        assert np.array_equal(got, want)          # a max is exact
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("method,p", [("wanda", 1.0), ("wanda", float("inf")),
+                                      ("ria", 1.0), ("ria", float("inf"))])
+def test_scores_and_masks_with_p_match_jax(jx, layer, method, p):
+    _, jnp, jsw = jx
+    W, X = layer
+    S = sw.SCORES[method](_t(W), _t(X), p=p).numpy()
+    jS = np.asarray(jsw.SCORES[method](jnp.asarray(W), jnp.asarray(X), p=p))
+    np.testing.assert_allclose(S, jS, rtol=1e-5)
+    _, mask = sw.prune(_t(W), _t(X), method=method, sparsity=0.5, p=p)
+    _, jmask = jsw.prune(jnp.asarray(W), jnp.asarray(X), method=method, sparsity=0.5, p=p)
+    _mask_agreement(mask.numpy(), np.asarray(jmask), S)
+
+
+def test_symwanda_given_Y_matches_jax(jx, layer):
+    _, jnp, jsw = jx
+    W, X = layer
+    Y = np.random.default_rng(9).standard_normal((X.shape[0], W.shape[1])).astype(np.float32)
+    got = sw.score_symwanda(_t(W), _t(X), beta=0.3, Y=_t(Y)).numpy()
+    want = np.asarray(jsw.score_symwanda(jnp.asarray(W), jnp.asarray(X), beta=0.3,
+                                         Y=jnp.asarray(Y)))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    # Y defaults to X @ W
+    assert torch.equal(sw.score_symwanda(_t(W), _t(X)),
+                       sw.score_symwanda(_t(W), _t(X), Y=_t(X) @ _t(W)))
+
+
+@pytest.mark.parametrize("sparsity", [0.3, 0.5, 0.9])
+def test_mask_global_same_scores_bitwise(jx, layer, sparsity):
+    _, jnp, jsw = jx
+    W, X = layer
+    S = np.array(jsw.score_ria(jnp.asarray(W), jnp.asarray(X)))
+    S[::7, :] = np.round(S[::7, :], 3)                # ties at the threshold
+    got = sw.mask_unstructured(_t(S), sparsity, per_output=False).numpy()
+    want = np.asarray(jsw.mask_unstructured(jnp.asarray(S), sparsity, per_output=False))
+    assert np.array_equal(got, want)
+    assert got.sum() >= round((1 - sparsity) * S.size)
+    assert not np.array_equal(got, sw.mask_unstructured(_t(S), sparsity).numpy())
+
+
+@pytest.mark.parametrize("frac", [0.05, 0.25, 1.0])
+def test_stochria_sample_frac_matches_jax(jx, layer, frac):
+    jax, jnp, jsw = jx
+    W, X = layer
+    key = jax.random.PRNGKey(4)
+    k = max(1, int(frac * X.shape[0]))
+    idx = _t(jax.random.choice(key, X.shape[0], shape=(k,), replace=False))
+    got = sw.score_stochria(_t(W), _t(X), sample_frac=frac, idx=idx).numpy()
+    want = np.asarray(jsw.score_stochria(jnp.asarray(W), jnp.asarray(X), key=key,
+                                         sample_frac=frac))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    # from a generator: k distinct rows, the same for the same seed
+    g = lambda: torch.Generator().manual_seed(2)
+    a = sw.score_stochria(_t(W), _t(X), sample_frac=frac, generator=g())
+    assert torch.equal(a, sw.score_stochria(_t(W), _t(X), sample_frac=frac, generator=g()))
+    rows = torch.randperm(X.shape[0], generator=g())[:k]
+    assert len(set(rows.tolist())) == k
+    assert torch.equal(a, sw.score_ria(_t(W), _t(X)[rows]))
+
+
+@pytest.mark.parametrize("kw,alpha", [({"use_ria_boundary": False}, 0.5),
+                                      ({"reg": 0.2}, 0.5), ({}, 0.25),
+                                      ({"swap_frac": 0.5, "iters": 10}, 0.5)])
+def test_dsnot_options_same_final_mask(jx, layer, kw, alpha):
+    _, jnp, jsw = jx
+    W, X = layer
+    jW, jX = jnp.asarray(W), jnp.asarray(X)
+    _, jmask = jsw.prune(jW, jX, method="wanda", sparsity=0.6)
+    cfg = sw.DSnoTConfig(**kw)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jsw.DSnoTConfig(**kw))
+    Wd, md = sw.r2_dsnot(_t(W), _t(jmask), _t(X), cfg, ria_alpha=alpha)
+    jWd, jmd = jsw.r2_dsnot(jW, jmask, jX, jsw.DSnoTConfig(**kw), ria_alpha=alpha)
+    assert not np.array_equal(md.numpy(), np.asarray(jmask))    # it swapped
+    assert np.array_equal(md.numpy(), np.asarray(jmd))
+    assert np.array_equal(Wd.numpy(), np.asarray(jWd))
+
+
+def test_defaults_match_the_reference(jx):
+    import inspect
+    _, _, jsw = jx
+
+    def defaults(fn):
+        return {k: v.default for k, v in inspect.signature(fn).parameters.items()
+                if v.default is not inspect.Parameter.empty and k not in ("key", "idx",
+                                                                         "generator")}
+
+    for name in ("act_norms", "score_wanda", "score_ria", "score_symwanda", "score_stochria",
+                 "mask_unstructured", "mask_nm", "prune", "r2_dsnot"):
+        want = defaults(getattr(jsw, name))
+        if name == "r2_dsnot":
+            want["cfg"] = sw.DSnoTConfig()
+        assert defaults(getattr(sw, name)) == want, name
+    assert dataclasses.asdict(sw.DSnoTConfig()) == dataclasses.asdict(jsw.DSnoTConfig())
 
 
 # ---------------------------------------------------------------------------
