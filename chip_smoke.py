@@ -39,18 +39,20 @@ the script exits nonzero without printing a result:
            tile [0, d).  (c) B6 (ops.stream_quantize_pack) at full width.
            B4, B5 and B6 must have launched.  Then, not counted: B4/B5 and
            B6 against their plain versions at full width, and B6 == B2
-  train    the chain's first half: training.loop.train at the full width of
-           h2o-danube-1.8b (bf16, random weights from seed 0), on a
-           SyntheticLMDataset (seed 0), seq 64, a global batch of 2
-           sequences, AdamW: dense for 2 steps (the baseline); efbv +
-           qsgd_kernel with 2 groups for 3 steps, where B1 must launch
-           2 x 55 chunks every step and B2 for the round report, and one
-           full B1 chunk of step 0's real delta must equal its plain version
-           bit for bit; hier + qsgd with 2 replicas, sync_period 2, for 4
-           steps, where the replicas must differ after step 0 and be bitwise
-           equal to each other and to the bf16 anchor after steps 1 and 3.
-           The efbv run's params are saved with save_checkpoint to a
-           temporary directory once its optimizer state is freed.  Per run:
+  train    the chain's first half: training.loop.train (traced, so each
+           step's metrics are fetched and reach the obs registry, which is
+           checked) at the full width of h2o-danube-1.8b (bf16, random
+           weights from seed 0), on a SyntheticLMDataset (seed 0), seq 64,
+           a global batch of 2 sequences, AdamW: dense for 2 steps (the
+           baseline); efbv + qsgd_kernel with 2 groups for 3 steps, where
+           B1 must launch 2 x 55 chunks every step and B2 for the round
+           report, and one full B1 chunk of step 0's real delta must equal
+           its plain version bit for bit; hier + qsgd with 2 replicas,
+           sync_period 2, for 4 steps, where the replicas must differ after
+           step 0 and be bitwise equal to each other and to the bf16
+           anchor after steps 1 and 3.  The efbv run's params are saved
+           with save_checkpoint to a temporary directory once its optimizer
+           state is freed.  Per run:
            each step's loss and grad norm (finite), the median step split by
            CUDA events into forward + backward, sync and clip + update, the
            peak device memory and the RoundCost bytes per round
@@ -82,6 +84,24 @@ the script exits nonzero without printing a result:
            test loss within rtol 1e-4, FedP3's accuracies within 2 of 600
            test points; ms per round on both; SPPM's (numpy) Fig 5.1 cost row
            once
+  cohort   the Cohort-Squeeze cohort engine (repro_torch.cohort): (a)
+           Population(10^6, dim 32), a cohort of 10^5 on edge_fl_tree
+           (5,000 / 5 / 4) with availability 0.9 and drop 0.05, rounds 0-4
+           on the card and on the CPU: bytes and participants equal the JAX
+           package's accounting, the anchors equal bit for bit, target_dist
+           and root_norm within rtol 1e-5, the registry's cohort series and
+           export_json; ms per round, the host derivations timed apart, the
+           round's spans, peak memory, staged bytes, bytes by level and
+           class; (b) retained device bytes equal across a 10x population
+           and a 4x cohort, staged bytes exact; (c) analytic round bytes ==
+           the encoded oracle (4,504 and 5,776 B) == the ledger's tags; (d)
+           lossy-link transmit: 16 children send a qsgd_kernel-encoded
+           full-width w_in (B2) with drops and corruptions, every attempt
+           decided as FaultModel.attempt_outcomes, retries under the retry
+           tag, delivered payloads decoded (B3) bit for bit; then one
+           full-model payload through a corrupted attempt (seal, verify and
+           corrupted-copy seconds).  The engine launches no kernel; B2 and
+           B3 must launch in (d)
   timing   B1-B3 and B6 (beside B2) at the serve path's shape, B4/B5 at the
            codec path's d, and B7/B8 (both modes, three score modes) at one
            full-width w_in (2560 x 6912 bf16) on the card (CUDA events,
@@ -146,6 +166,22 @@ WIDE_ARCH = "qwen1.5-4b"       # the second full-width prune ladder
 # paper phase: FedP3 rounds and layer sizes (benchmarks/bench_fedp3.py), and
 # the card-vs-CPU tolerance on objective traces and losses (summation order)
 PAPER_ROUNDS, FEDP3_SIZES, PAPER_RTOL = 25, (24, 64, 64, 48, 6), 1e-4
+# cohort phase: the headline (Population(1e6, dim 32), cohort 1e5, edge_fl_tree
+# classes, these faults) and its (total bytes, participants) for rounds 0-4,
+# from the JAX package's numpy accounting; the byte oracle's (total, uplink)
+# for rounds 0-1 at cohort 80; the staged bytes of one round at cohort 2,000
+# and 8,000; the transmit faults
+COHORT_POP, COHORT_SIZE, COHORT_DIM = 1_000_000, 100_000, 32
+COHORT_FAULTS = dict(seed=11, availability=0.9, drop_rate=0.05)
+COHORT_BYTES = ((3_255_288, 89_957), (3_260_104, 90_079), (3_248_248, 89_973),
+                (3_249_128, 89_952), (3_243_592, 89_992))
+COHORT_UPPER = {"metro": 2_560, "wan": 32}
+ORACLE_BYTES = ((4_504, 1_912), (5_776, 3_184))
+STAGED_BYTES = {2_000: 323_711, 8_000: 1_281_740}
+COHORT_RTOL = 1e-5             # target_dist / root_norm, card vs CPU (sum order)
+XMIT_FAULTS = dict(seed=7, drop_rate=0.2, corrupt_rate=0.2, max_retries=3)
+XMIT_CHILDREN = 16
+W_IN = (2560, 6912)            # one full-width h2o-danube-1.8b w_in
 # train phase: (label, SyncConfig fields, steps, n_groups, n_pods)
 TRAIN_SEQ, TRAIN_BATCH = 64, 2
 TRAIN_RUNS = (("dense", {"mode": "dense"}, 2, 1, 1),
@@ -937,10 +973,11 @@ class StepSpans:
 class KernelProbe:
     """Stands in for a kernel module inside the module that calls it, for one
     run: the run's first call of ``fn`` (B1: a full chunk of step 0's delta;
-    B2: the round report's probe) is held bit for bit against its plain
-    version on the same input and noise.  The kernel call itself is the main
-    path's, counted by the wrapper as always; the plain version launches
-    nothing."""
+    B2: the round report's probe, or a transmitted payload's encode; B3: a
+    delivered payload's decode) is held bit for bit against its plain version
+    on the same inputs.  The kernel call itself is the main path's, counted
+    by the wrapper as always; the plain version launches nothing.  Probes
+    chain: a probe of another probe stands in for both functions."""
 
     def __init__(self, module, fn, plain):
         self._mod, self._fn, self._plain = module, fn, plain
@@ -951,26 +988,26 @@ class KernelProbe:
             return self._call
         return getattr(self._mod, name)
 
-    def _call(self, x2d, noise2d, bits=8):
+    def _call(self, *args, **kw):
         kernel = getattr(self._mod, self._fn)
         if self.checked is not None:
-            return kernel(x2d, noise2d, bits=bits)
-        x_in = x2d.clone()
-        out = kernel(x2d, noise2d, bits=bits)
-        want = self._plain(x_in, noise2d, bits)
+            return kernel(*args, **kw)
+        ins = tuple(a.clone() if hasattr(a, "clone") else a for a in args)
+        out = kernel(*args, **kw)
+        want = self._plain(*ins, **kw)
         got, want = (out, want) if isinstance(out, tuple) else ((out,), (want,))
-        self.checked = (tuple(x2d.shape), all(bits_equal(g, w) for g, w in zip(got, want)),
+        self.checked = (tuple(args[0].shape), all(bits_equal(g, w) for g, w in zip(got, want)),
                         max(max_abs_err(g, w) for g, w in zip(got, want)))
-        self.inputs = (x_in, noise2d.clone(), bits)     # for timing after the run
+        self.inputs = (ins, kw)                         # for timing after the run
         del want
         return out
 
     def time_ms(self):
         """The kernel's time on the checked input (CUDA events, median of 5);
         the caller resets the launch counts after it."""
-        x_in, u, bits = self.inputs
+        ins, kw = self.inputs
         kernel = getattr(self._mod, self._fn)
-        return cuda_ms(lambda: kernel(x_in, u, bits=bits))
+        return cuda_ms(lambda: kernel(*ins, **kw))
 
 
 def check_replicas(step, state, want_equal):
@@ -1003,6 +1040,7 @@ def phase_train(cfg, device, ckpt):
     from repro_torch.data.synthetic import SyntheticLMDataset, lm_batch_iterator
     from repro_torch.kernels import bitpack, ops, quant8, ref
     from repro_torch.kernels.ops import tile_rows
+    from repro_torch.obs import registry
     from repro_torch.training import loop
     from repro_torch.training.checkpoint import save_checkpoint
     from repro_torch.utils.tree import tree_leaves, tree_map
@@ -1035,6 +1073,7 @@ def phase_train(cfg, device, ckpt):
         if probe is not None:
             dist.quant8, ops._bp = probe, b2
         kernels.reset_launch_counts()
+        registry.reset()
         try:
             t0 = time.perf_counter()
             with spans:
@@ -1058,6 +1097,12 @@ def phase_train(cfg, device, ckpt):
         gnorms = [h["grad_norm"] for h in history]
         require(len(history) == steps and all(math.isfinite(v) for v in losses + gnorms),
                 f"{label}: non-finite loss or grad norm: {losses} {gnorms}")
+        # traced steps feed the registry: each step's fetched metrics, and the
+        # round cost once for a compressed sync
+        require([v for _, v in registry.get("train/loss").series] == losses
+                and (sync_kw["mode"] == "dense") == (registry.get("comm/model/round_time_s") is None),
+                f"{label}: registry series {registry.names()}")
+        registry.reset()
         split = spans.split()
         med = {k: statistics.median(r[k] for r in split) for k in split[0]}
         cost = dist.round_comm(tc.sync, cfg.param_count(), device=device)   # not counted
@@ -1240,6 +1285,341 @@ def phase_paper(device):
     row, sppm_s = timed(cpu, lambda: cohort_squeeze.fig_5_1(prob, x_star, 50.0))
     log("paper", f"SPPM-AS (numpy, host) Fig 5.1 row, gamma 50: total cost TK by K "
                  f"{json.dumps({k: v for k, v in row.items()})} in {sppm_s:.2f} s")
+
+
+# ---------------------------------------------------------------------------
+def cohort_rounds(eng, device, n_rounds, trace=None):
+    """Rounds 0..n-1 of ``eng`` -> (reports, anchors on the host after each
+    round, host seconds per synchronized round, spans per round when
+    ``trace`` is given: the tracer is on for rounds >= 1)."""
+    import torch
+    state, reps, anchors, secs, spans = eng.init_state(), [], [], [], []
+    for rnd in range(n_rounds):
+        if trace is not None and rnd == 1:
+            trace.get_tracer().reset()
+            trace.enable()
+        (state, rep), sec = timed(device, lambda: eng.round(state, rnd))
+        if trace is not None and rnd >= 1:
+            spans.append({sp.name: sp.dur_us / 1e3 for sp in trace.get_tracer().spans()})
+            trace.get_tracer().reset()
+        reps.append(rep)
+        secs.append(sec)
+        anchors.append([a["x"].to("cpu", copy=True) for a in state.anchors])
+    if trace is not None:
+        trace.disable()
+    del state
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return reps, anchors, secs, spans
+
+
+def transmit_children(n, w, comp, cfg, fm, ledger, device):
+    """(d)'s children: each encodes ``w`` with ``comp`` (B2) and sends it
+    over the lossy uplink; every attempt's outcome must equal
+    ``FaultModel.attempt_outcomes`` at lane ``attempt * n + child``, the
+    ledger's tags the first attempt and the retries, and a delivered payload
+    decode (B3) bit for bit as the sealed original.  -> (attempts sent,
+    outcome counts)."""
+    import copy
+
+    import numpy as np
+    from repro_torch.comm import codecs
+    from repro_torch.comm.ledger import RETRY_TAG
+    from repro_torch.faults import transmit
+    from repro_torch.utils.device import fold_seed, make_generator
+
+    sent, outcomes = 0, {"delivered": 0, "dropped": 0, "corrupt": 0}
+    for child in range(n):
+        p = codecs.encode(comp, w, generator=make_generator(fold_seed(17, child), device))
+        original = copy.deepcopy(codecs.seal_payload(p))
+        res = transmit(p, cfg, rnd=0, level_name="uplink", n_children=n, child=child,
+                       ledger=ledger)
+        drops = corrupt = 0
+        for k in range(res.attempts):
+            dr, co, _ = fm.attempt_outcomes(0, 0, 0, lanes=np.array([k * n + child]))
+            if k == 0:
+                d0, c0, _ = fm.attempt_outcomes(0, 0, 0)
+                require((dr[0], co[0]) == (d0[child], c0[child]), f"child {child}: lane draw")
+            last = res.delivered and k == res.attempts - 1
+            require(bool(dr[0] or co[0]) != last, f"child {child} attempt {k}: outcome "
+                                                  f"differs from attempt_outcomes")
+            drops, corrupt = drops + int(dr[0]), corrupt + int(co[0])
+        require((drops, corrupt) == (res.n_dropped, res.n_corrupt),
+                f"child {child}: {res.n_dropped} dropped, {res.n_corrupt} corrupt; the fault "
+                f"model says {drops}, {corrupt}")
+        tags = [rec.tag for rec in ledger.records if rec.link == f"uplink/child{child}"]
+        require(tags == ["uplink"] + [RETRY_TAG] * (res.attempts - 1), f"child {child}: {tags}")
+        if res.delivered:
+            require(bits_equal(codecs.decode(res.payload, device),
+                               codecs.decode(original, device)),
+                    f"child {child}: delivered payload decodes differently")
+        sent += res.attempts
+        outcomes["delivered"] += int(res.delivered)
+        outcomes["dropped"] += res.n_dropped
+        outcomes["corrupt"] += res.n_corrupt
+        del p, original, res
+    return sent, outcomes
+
+
+def phase_cohort(device, d, payload_bytes, pop_size=COHORT_POP, cohort=COHORT_SIZE,
+                 w_in=W_IN):
+    """The Cohort-Squeeze cohort engine on the card.  (a) The headline round
+    (10^5 clients sampled from 10^6) for rounds 0-4 on the card and on the
+    CPU: bytes and participants equal the table, anchors equal bit for bit,
+    the registry's series; (b) retained device bytes and staged host bytes
+    O(cohort); (c) the analytic bytes against the encoded oracle; (d)
+    lossy-link transmit of qsgd_kernel payloads (B2 encode, B3 decode).
+    Returns this phase's kernel launch counts (B2 and B3 must be nonzero)."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.cohort import CohortEngine, Population, materialized_round_bytes
+    from repro_torch.comm import codecs
+    from repro_torch.comm.ledger import CommLedger
+    from repro_torch.comm.topology import Link
+    from repro_torch.comm.tree import TreeLevel, TreeTopology
+    from repro_torch.core.compressors import qsgd_kernel
+    from repro_torch.faults import FaultConfig, FaultModel, corrupt_payload, transmit
+    from repro_torch.kernels import bitpack, ops, quant8, ref
+    from repro_torch.kernels.ops import tile_rows
+    from repro_torch.obs import trace
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.utils.device import make_generator
+
+    on_card = device.type == "cuda"
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+    headline = (pop_size, cohort) == (COHORT_POP, COHORT_SIZE)
+    faults = FaultConfig(**COHORT_FAULTS)
+    kernels.reset_launch_counts()
+
+    # -- (a) the headline round, card then CPU
+    pop = Population(n_clients=pop_size, dim=COHORT_DIM)
+    runs = {}
+    for dev in (device, cpu):
+        reg = MetricsRegistry()
+        eng = CohortEngine(pop, cohort_size=cohort, fault_config=faults, metrics=reg,
+                           device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+        reps, anchors, secs, spans = cohort_rounds(eng, dev, len(COHORT_BYTES), trace)
+        peak = (torch.cuda.max_memory_allocated(dev) - base) if dev.type == "cuda" else None
+        runs[dev.type] = dict(eng=eng, reg=reg, reps=reps, anchors=anchors, secs=secs,
+                              spans=spans, peak=peak)
+        del eng
+    card, host = runs[device.type], runs["cpu"]
+    eng, reps = card["eng"], card["reps"]
+    require([lev.fanout for lev in eng.tree.levels] == [cohort // 20, 5, 4],
+            f"tree fanouts {[lev.fanout for lev in eng.tree.levels]}")
+    if headline:
+        got = [(r.bytes.total_bytes, r.n_participants) for r in reps]
+        require(got == list(COHORT_BYTES), f"round bytes/participants {got} != "
+                                           f"{list(COHORT_BYTES)}")
+        for r in reps:
+            by_level = r.bytes.by_level(eng.tree)
+            require({k: by_level[k] for k in COHORT_UPPER} == COHORT_UPPER,
+                    f"round {r.round}: upper bytes {by_level}")
+            require(r.padded_steps == 4_838_650, f"padded steps {r.padded_steps}")
+    for rnd, (a, b) in enumerate(zip(card["anchors"], host["anchors"])):
+        for lv, (x, y) in enumerate(zip(a, b)):
+            require(bits_equal(x, y), f"round {rnd} level {lv}: card anchor != CPU anchor "
+                                      f"(max diff {max_abs_err(x, y):.3g})")
+    for r, h in zip(reps, host["reps"]):
+        require(r.bytes == h.bytes and r.staged_nbytes == h.staged_nbytes
+                and np.array_equal(r.cohort_ids, h.cohort_ids), f"round {r.round}: card != CPU report")
+        for k in r.metrics:
+            close(r.metrics[k], h.metrics[k], COHORT_RTOL, f"round {r.round} {k}")
+    reg = card["reg"]
+    require(reg.get("cohort/bytes/total").total == sum(r.bytes.total_bytes for r in reps),
+            "registry cohort/bytes/total != the reports' bytes")
+    require([v for _, v in reg.get("cohort/participants").series]
+            == [r.n_participants for r in reps], "registry participants")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = reg.export_json(os.path.join(tmp, "cohort_metrics.json"))
+        with open(path) as f:
+            require(json.load(f) == json.loads(json.dumps(reg.to_dict())),
+                    "export_json does not round-trip")
+    host_s = {"client_spec": [], "buckets": [], "round_plan": []}
+    for rnd in range(1, len(reps)):
+        ids, t_ids = timed(cpu, lambda: eng.round_cohort(rnd))
+        spec, t_spec = timed(cpu, lambda: pop.client_spec(ids))
+        host_s["client_spec"].append(t_ids + t_spec)
+        host_s["buckets"].append(timed(cpu, lambda: eng.buckets(spec.n_samples))[1])
+        host_s["round_plan"].append(timed(cpu, lambda: eng.round_plan(rnd, ids, spec.class_ids))[1])
+    ms = {k: 1e3 * statistics.median(v["secs"][1:]) for k, v in runs.items()}
+    host_ms = {k: 1e3 * statistics.median(v) for k, v in host_s.items()}
+    span_ms = {k: statistics.median(sp.get(k, 0.0) for sp in card["spans"])
+               for k in card["spans"][0]} if card["spans"] else {}
+    rep = reps[-1]
+    peak = "n/a" if card["peak"] is None else f"{card['peak'] / 2**20:.2f} MiB"
+    log("cohort", f"(a) Population({pop_size}, dim {COHORT_DIM}), cohort {cohort} on "
+                  f"{eng.tree.name} (fanouts {[lev.fanout for lev in eng.tree.levels]}), "
+                  f"faults {COHORT_FAULTS}: rounds 0-4 bytes/participants "
+                  f"{[(r.bytes.total_bytes, r.n_participants) for r in reps]} == the JAX "
+                  f"package's accounting: {headline}; card anchors == CPU anchors bit for bit, "
+                  f"target_dist / root_norm within rtol {COHORT_RTOL}")
+    log("cohort", f"(a) ms per round, median of rounds 1-4 (synchronized): card {ms[device.type]:.3f} "
+                  f"(rounds {[round(1e3 * s, 3) for s in card['secs']]}), CPU {ms['cpu']:.3f} "
+                  f"(rounds {[round(1e3 * s, 3) for s in host['secs']]}); host derivations "
+                  f"timed apart: " + ", ".join(f"{k} {v:.3f}" for k, v in host_ms.items())
+                  + f" = {sum(host_ms.values()):.3f} ms; round spans (host ms, card): "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in span_ms.items()))
+    log("cohort", f"(a) peak device memory over the 5 rounds {peak} above the "
+                  f"allocation before them; staged {rep.staged_nbytes} B a round; padded steps {rep.padded_steps}; "
+                  f"round 4 bytes by level {rep.bytes.by_level(eng.tree)}, by class "
+                  f"{dict(zip([c.name for c in pop.classes], rep.bytes.leaf_class_nbytes))} "
+                  f"(counts {rep.bytes.leaf_class_counts}); target_dist "
+                  f"{[round(r.metrics['target_dist'], 6) for r in reps]}, root_norm "
+                  f"{[round(r.metrics['root_norm'], 6) for r in reps]}")
+    del runs, card, host, eng, reps, reg
+    gc.collect()
+
+    # -- (b) memory: O(cohort), never O(population)
+    def mem_round(n_pop, size):
+        e = CohortEngine(Population(n_clients=n_pop, dim=COHORT_DIM), cohort_size=size,
+                         device=device)
+        if on_card:
+            torch.cuda.synchronize(device)
+            before = torch.cuda.memory_allocated(device)
+        state, r = e.round(e.init_state(), 0)
+        retained = None
+        if on_card:
+            torch.cuda.synchronize(device)
+            retained = torch.cuda.memory_allocated(device) - before
+        del state
+        return r.staged_nbytes, retained
+
+    small = 2_000 if headline else cohort // 10
+    sa, ra = mem_round(pop_size // 10, small)
+    sb, rb = mem_round(pop_size, small)
+    sc, rc = mem_round(pop_size, 4 * small)
+    require(sa == sb and ra == rb, f"population changed the footprint: staged {sa} / {sb}, "
+                                   f"retained {ra} / {rb}")
+    require(sc > 3 * sa and rc == ra, f"cohort x4: staged {sa} -> {sc}, retained {ra} -> {rc}")
+    if headline:
+        require((sa, sc) == (STAGED_BYTES[2_000], STAGED_BYTES[8_000]),
+                f"staged bytes {sa}, {sc} != {STAGED_BYTES}")
+    log("cohort", f"(b) cohort {small}: staged {sa} B at populations {pop_size // 10} and "
+                  f"{pop_size} (equal), retained device bytes {ra} / {rb} (equal); cohort "
+                  f"{4 * small}: staged {sc} B ({sc / sa:.2f}x), retained {rc} (equal)")
+
+    # -- (c) the analytic bytes against the encoded oracle, on the card
+    ledger = CommLedger()
+    opop = Population(n_clients=50_000, dim=COHORT_DIM)
+    oeng = CohortEngine(opop, cohort_size=80, fault_config=faults, ledger=ledger, device=device)
+    state = oeng.init_state()
+    for rnd, (total, uplink) in enumerate(ORACLE_BYTES):
+        state, r = oeng.round(state, rnd)
+        oracle, osec = timed(device, lambda: materialized_round_bytes(
+            rnd, r.class_ids, opop.classes, oeng.upper_compressors, oeng.tree, COHORT_DIM,
+            r.plan.survivor_masks(), device=device))
+        by_level = r.bytes.by_level(oeng.tree)
+        tags = {}
+        for rec in ledger.records:
+            if rec.round == rnd:
+                tags[rec.tag] = tags.get(rec.tag, 0) + rec.nbytes
+        require(r.bytes.total_bytes == oracle == total
+                and by_level == {"uplink": uplink, **COHORT_UPPER} and tags == by_level,
+                f"oracle round {rnd}: analytic {r.bytes.total_bytes}, encoded {oracle}, "
+                f"want {total}; by level {by_level}; ledger {tags}")
+        log("cohort", f"(c) cohort 80, round {rnd}: analytic {r.bytes.total_bytes} B == "
+                      f"encoded oracle {oracle} B ({osec:.3f} s on {device.type}); by level "
+                      f"{by_level} == ledger tags")
+    del state, oeng
+    require(not any(kernels.launch_counts().values()),
+            f"the engine launched kernels: {kernels.launch_counts()}")
+
+    # -- (d) lossy-link transmit of qsgd_kernel payloads (B2 encode, B3 decode)
+    cfg = FaultConfig(**XMIT_FAULTS)
+    n = XMIT_CHILDREN
+    tree = TreeTopology("cohort_xmit", (TreeLevel("uplink", n, Link(gbps=0.00625,
+                                                                    latency_us=50_000.0)),))
+    fm = FaultModel(cfg, tree)
+    comp = qsgd_kernel(8)
+    w = torch.randn(w_in, generator=make_generator(17, device), device=device).mul_(0.02)
+    ledger = CommLedger()
+    # B2 and B3 held to their plain versions on this path's own inputs: child
+    # 0's encode and the first delivered payload's decode
+    b3 = KernelProbe(bitpack, "unpack_dequant_2d", ref.unpack_dequant_ref)
+    b2 = KernelProbe(b3, "quant_pack_2d", ref.quant_pack_ref)
+    ops._bp = b2
+    try:
+        sent, outcomes = transmit_children(n, w, comp, cfg, fm, ledger, device)
+    finally:
+        ops._bp = bitpack
+    rows = tile_rows(w.numel())
+    for name, pr in (("B2", b2), ("B3", b3)):
+        require(pr.checked is not None and pr.checked[0] == (rows, quant8.QBLOCK),
+                f"{name}'s first call in the transmit was not a ({rows}, {quant8.QBLOCK}) "
+                f"payload: {pr.checked}")
+        require(pr.checked[1], f"{name} on a transmitted payload != plain: {pr.checked}")
+    nbytes = ledger.records[0].nbytes
+    require(ledger.retry_bytes == (sent - n) * nbytes
+            and ledger.bytes_by_tag().get("uplink") == n * nbytes,
+            f"retry bytes {ledger.retry_bytes} != ({sent} - {n}) x {nbytes}")
+    log("cohort", f"(d) {n} children send a qsgd_kernel w_in {tuple(w_in)} ({nbytes} B) over "
+                  f"uplink with {XMIT_FAULTS}: {sent} attempts, {outcomes}; every decision == "
+                  f"FaultModel.attempt_outcomes at lane attempt * {n} + child; ledger "
+                  f"uplink {n * nbytes} B + retry {ledger.retry_bytes} B; delivered payloads "
+                  f"decode (B3) bit for bit to the sealed originals; child 0's B2 encode "
+                  f"{b2.checked[0]} == plain bit for bit (max_abs_err {b2.checked[2]}), the "
+                  f"first delivered B3 decode {b3.checked[0]} == plain bit for bit "
+                  f"(max_abs_err {b3.checked[2]})")
+    del w, ledger, b2, b3
+
+    # one full-model payload on a (round, child) lane whose first attempt is
+    # corrupted and second delivered
+    lane = None
+    for rnd in range(1_000):
+        for c in range(n):
+            first = fm.attempt_outcomes(rnd, 0, 0, lanes=np.array([c]))
+            second = fm.attempt_outcomes(rnd, 0, 0, lanes=np.array([n + c]))
+            if first[1][0] and not (second[0][0] or second[1][0]):
+                lane = (rnd, c)
+                break
+        if lane is not None:
+            break
+    require(lane is not None, "no lane with a corrupted then a clean attempt")
+    x = torch.randn((d,), generator=make_generator(19, device), device=device).mul_(0.02)
+    p, enc_s = timed(device, lambda: codecs.encode(comp, x, generator=make_generator(23, device)))
+    del x
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    require(p.nbytes == payload_bytes, f"full-model payload {p.nbytes} B != {payload_bytes}")
+    sec = {"seal": timed(cpu, lambda: codecs.seal_payload(p))[1],
+           "verify": timed(cpu, lambda: codecs.verify_payload(p))[1]}
+
+    def corrupted_copy():
+        wire = copy.deepcopy(p)
+        corrupt_payload(wire, rnd=lane[0], lane=lane[1], seed=cfg.seed)
+        try:
+            codecs.verify_payload(wire)
+        except codecs.PayloadError as e:
+            return e.plane
+        return None
+    plane, sec["corrupted copy + verify"] = timed(cpu, corrupted_copy)
+    require(plane == "q", f"corrupted plane {plane!r}, expected 'q'")
+    res, sec["transmit"] = timed(cpu, lambda: transmit(
+        p, cfg, rnd=lane[0], level_name="uplink", n_children=n, child=lane[1]))
+    require(res.delivered and res.attempts == 2 and res.n_corrupt == 1
+            and "checksum mismatch" in res.error, f"full-model transmit: {res}")
+    del p, res
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    counts = kernels.launch_counts()
+    log("cohort", f"(d) full-model qsgd_kernel payload {payload_bytes} B (d={d}, encoded in "
+                  f"{enc_s:.3f} s) on round {lane[0]} child {lane[1]}: attempt 0 corrupted "
+                  f"(plane 'q' caught), attempt 1 delivered; seconds " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in sec.items()))
+    log("cohort", f"phase {time.perf_counter() - t_phase:.2f} s; kernels "
+                  f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1559,10 +1939,16 @@ def main():
         require(prune_counts[name] > 0, f"{kid} {name} was not launched on the prune path")
     wide_counts = phase_prune_wide(get_config(WIDE_ARCH), device)
     phase_paper(device)
-    # each kernel's launches on the paths that exercise it (B1/B2: serve + train)
+    cohort_counts = phase_cohort(device, d, serve_payload_bytes)
+    for kid, name in (("B2", "quant_pack_2d"), ("B3", "unpack_dequant_2d")):
+        require(cohort_counts[name] > 0, f"{kid} {name} was not launched on the cohort path")
+    # each kernel's launches on the paths that exercise it (B1: serve + train;
+    # B2: serve + train + cohort; B3: serve + cohort)
     launches = {**counts, **{name: codec_counts[name] for _, name, _, _, _ in CODEC_INFO}}
     for name in ("quant_dequant_2d", "quant_pack_2d"):
         launches[name] += train_counts[name]
+    for name in ("quant_pack_2d", "unpack_dequant_2d"):
+        launches[name] += cohort_counts[name]
     kernels = phase_timing(rows, device, launches)
     kernels += phase_mask_timing(d, device, launches)
     kernels += phase_prune_timing(layer, prune_counts, selecting, prune_errs, wide_counts)

@@ -124,6 +124,16 @@ class CommLedger:
     def bytes_by_tag(self) -> Dict[str, int]:
         return self._by("tag")
 
+    @property
+    def retry_bytes(self) -> int:
+        """Bytes charged to retransmissions (faulty links re-sending after a
+        drop or a checksum-caught corruption, tag :data:`RETRY_TAG`)."""
+        return sum(r.nbytes for r in self.records if r.tag == RETRY_TAG)
+
+    def bits_per_node(self, n_nodes: int) -> float:
+        """Total bits divided by participating nodes — the paper's metric."""
+        return self.total_bits / max(1, n_nodes)
+
     # -- simulation (a model of the topology preset) -------------------------
     def round_time_s(self, topo, round: int) -> float:
         """Modelled wall-clock of one round on ``topo``: links within a phase

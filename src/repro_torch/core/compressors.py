@@ -24,6 +24,12 @@ The draws, as the JAX compressor makes them:
 Sparsifiers keep every coordinate at or above the k-th value (ties can keep
 more than k), rand_k every score at or below the k-th smallest, exactly as
 the reference's threshold compares.
+
+Row-wise: ``fn`` of every flattenable compressor works along the last axis
+of any-rank input, each row exactly as a 1-D call on it (the draws above get
+the same leading dimensions; mix_k's coin one per row), so a stack of (G, d)
+rows compresses in one batched pass.  ``Compressor.__call__`` flattens first,
+so called on a tensor it compresses the whole tensor as one vector.
 """
 from __future__ import annotations
 
@@ -55,7 +61,7 @@ class WireSpec:
 @dataclass(frozen=True)
 class Compressor:
     name: str
-    fn: Callable            # (flat_x, noise, generator) -> flat_x_hat
+    fn: Callable            # (x (..., d), noise, generator) -> x_hat, row-wise
     eta: Optional[float]
     omega: Optional[float]
     bits_per_dim: float
@@ -145,7 +151,7 @@ def identity() -> Compressor:
 
 
 def _kth_smallest(scores: torch.Tensor, k: int) -> torch.Tensor:
-    return torch.topk(scores, k, largest=False).values[-1]
+    return torch.topk(scores, k, dim=-1, largest=False).values[..., -1:]
 
 
 def rand_k(k_frac: float) -> Compressor:
@@ -153,9 +159,9 @@ def rand_k(k_frac: float) -> Compressor:
     scores, scaled by d/k (unbiased)."""
 
     def fn(x, noise, gen):
-        d = x.shape[0]
+        d = x.shape[-1]
         k = max(1, int(round(k_frac * d)))
-        scores = _uniform((d,), noise, gen, x.device)
+        scores = _uniform(x.shape, noise, gen, x.device)
         mask = (scores <= _kth_smallest(scores, k)).to(x.dtype)
         return x * mask * (d / k)
 
@@ -170,9 +176,9 @@ def top_k(k_frac: float) -> Compressor:
     can keep more than k, exactly as the reference's threshold compare)."""
 
     def fn(x, noise, gen):
-        d = x.shape[0]
+        d = x.shape[-1]
         k = max(1, int(round(k_frac * d)))
-        thresh = torch.topk(x.abs(), k).values[-1]
+        thresh = torch.topk(x.abs(), k, dim=-1).values[..., -1:]
         return x * (x.abs() >= thresh).to(x.dtype)
 
     eta = math.sqrt(max(0.0, 1.0 - k_frac))
@@ -187,13 +193,13 @@ def block_top_k(k_frac: float, block: int = 2048) -> Compressor:
     kb = round(k_frac * block) (the zero-padded tail block included)."""
 
     def fn(x, noise, gen):
-        d = x.shape[0]
+        d = x.shape[-1]
         nb = -(-d // block)
-        xp = F.pad(x, (0, nb * block - d)).reshape(nb, block)
+        xp = F.pad(x, (0, nb * block - d)).reshape(*x.shape[:-1], nb, block)
         kb = max(1, int(round(k_frac * block)))
-        thresh = torch.topk(xp.abs(), kb, dim=1).values[:, -1:]
+        thresh = torch.topk(xp.abs(), kb, dim=-1).values[..., -1:]
         mask = (xp.abs() >= thresh).to(x.dtype)
-        return (xp * mask).reshape(-1)[:d]
+        return (xp * mask).reshape(*x.shape[:-1], -1)[..., :d]
 
     eta = math.sqrt(max(0.0, 1.0 - k_frac))
     return Compressor(f"block_top_k({k_frac:g},{block})", fn, eta=eta, omega=0.0,
@@ -208,16 +214,16 @@ def qsgd(bits: int = 8, block: int = 2048, stochastic: bool = True) -> Compresso
     s = 2 ** (bits - 1) - 1
 
     def fn(x, noise, gen):
-        d = x.shape[0]
+        d = x.shape[-1]
         nb = -(-d // block)
-        xp = F.pad(x, (0, nb * block - d)).reshape(nb, block)
-        scale = xp.abs().amax(dim=1, keepdim=True) / s
+        xp = F.pad(x, (0, nb * block - d)).reshape(*x.shape[:-1], nb, block)
+        scale = xp.abs().amax(dim=-1, keepdim=True) / s
         scale = torch.where(scale == 0, torch.ones_like(scale), scale)
         y = xp / scale
         if stochastic:
             y = y + _uniform(y.shape, noise, gen, x.device, low=-0.5)
         q = torch.round(y).clamp_(-s, s)
-        return (q * scale).reshape(-1)[:d]
+        return (q * scale).reshape(*x.shape[:-1], -1)[..., :d]
 
     omega = block / (4.0 * s * s)
     return Compressor(f"qsgd({bits}b,{block})", fn,
@@ -235,11 +241,11 @@ def mix_k(k_frac_top: float, k_frac_rand: float, rho: float = 0.5) -> Compressor
 
     def fn(x, noise, gen):
         if noise is None:
-            coin_u = _uniform((), None, gen, x.device)
-            scores = _uniform((x.shape[0],), None, gen, x.device)
+            coin_u = _uniform(x.shape[:-1], None, gen, x.device)
+            scores = _uniform(x.shape, None, gen, x.device)
         else:
             coin_u, scores = noise
-        coin = _uniform((), coin_u, gen, x.device) < rho
+        coin = _uniform(x.shape[:-1], coin_u, gen, x.device)[..., None] < rho
         return torch.where(coin, t.fn(x, None, None), r.fn(x, scores, None))
 
     bits = rho * t.bits_per_dim + (1 - rho) * r.bits_per_dim
@@ -253,13 +259,13 @@ def comp_k(k_frac_top: float, k_frac_rand: float) -> Compressor:
     (random support of size k', then the k largest among it, unscaled)."""
 
     def fn(x, noise, gen):
-        d = x.shape[0]
+        d = x.shape[-1]
         kr = max(1, int(round(k_frac_rand * d)))
         kt = max(1, int(round(k_frac_top * d)))
-        scores = _uniform((d,), noise, gen, x.device)
+        scores = _uniform(x.shape, noise, gen, x.device)
         sel = scores <= _kth_smallest(scores, kr)
         masked = torch.where(sel, x.abs(), torch.full_like(x, -math.inf))
-        thresh_t = torch.topk(masked, kt).values[-1]
+        thresh_t = torch.topk(masked, kt, dim=-1).values[..., -1:]
         return x * (masked >= thresh_t).to(x.dtype)
 
     return Compressor(f"comp({k_frac_top:g},{k_frac_rand:g})", fn,
@@ -299,14 +305,22 @@ def qsgd_sharded(bits: int = 8, block: int = 256, stochastic: bool = True) -> Co
 
 def qsgd_kernel(bits: int = 8) -> Compressor:
     """qsgd backed by kernel B1 (``ops.quantize_dequantize``); noise shape
-    (rows_pad, 512) in [0, 1)."""
-    from repro_torch.kernels.ops import quantize_dequantize
+    (rows_pad, 512) in [0, 1) per row."""
+    from repro_torch.kernels.ops import quantize_dequantize, tile_rows
     from repro_torch.kernels.quant8 import QBLOCK
 
     s = 2 ** (bits - 1) - 1
 
     def fn(x, noise, gen):
-        return quantize_dequantize(x, noise=noise, generator=gen, bits=bits)
+        if x.dim() == 1:
+            return quantize_dequantize(x, noise=noise, generator=gen, bits=bits)
+        # rows: each padded to whole tiles on its own, as a 1-D call pads it,
+        # so one launch over all rows equals one call per row (noise
+        # (..., rows_pad, 512))
+        d = x.shape[-1]
+        xp = F.pad(x, (0, tile_rows(d) * QBLOCK - d))
+        u = None if noise is None else noise.reshape(-1, QBLOCK)
+        return quantize_dequantize(xp, noise=u, generator=gen, bits=bits)[..., :d]
 
     return Compressor(f"qsgd_kernel({bits}b)", fn, eta=0.0,
                       omega=QBLOCK / (4.0 * s * s), bits_per_dim=float(bits),

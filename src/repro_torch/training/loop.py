@@ -5,9 +5,12 @@ The round report (bytes per round from ``core.distributed.round_comm``, the
 modelled time on the configured topology preset) is logged once at the
 start; under ``qsgd_kernel`` its probe encode runs kernel B2.  Metrics stay
 on the device and are fetched only at log points and once at the end,
-never with a per-step ``.item()``.  The ``repro.obs.registry`` observers
-are not ported yet (ROADMAP Queue 1, item 7); the ``round/step`` and
-``round/blocking_fetch`` spans go through ``repro_torch.obs.trace``.
+never with a per-step ``.item()`` — unless tracing is on
+(``repro_torch.obs.trace``), when, as in the JAX loop, every step's metrics
+are fetched (``round/blocking_fetch``) and the process-wide
+``repro_torch.obs.registry`` receives the round cost
+(``observe_round_cost``), each step's fault plan (``observe_fault_plan``)
+and each step's fetched metrics (``observe_train_step``).
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.models import init_params
+from repro_torch.obs import registry
 from repro_torch.obs import trace as obs_trace
 from repro_torch.training.checkpoint import save_checkpoint
 from repro_torch.training.steps import init_train_state, make_train_step
@@ -102,6 +106,8 @@ def train(cfg: ModelConfig, tc: TrainConfig, batches: Iterator[dict],
     cost = None
     if tc.sync.mode != "dense":
         cost = round_report(tc, cfg, device, log)
+        if obs_trace.enabled():
+            registry.observe_round_cost(0, cost)
     fault_model = _fault_model(tc, n_groups, n_pods)
     fault_nbytes = None
     if fault_model is not None:
@@ -114,6 +120,7 @@ def train(cfg: ModelConfig, tc: TrainConfig, batches: Iterator[dict],
     history = []
     t0 = time.perf_counter()
     for step in range(steps):
+        tracing = obs_trace.enabled()
         with obs_trace.span("round/step", round=step):
             model_batch = _to_model_batch(next(batches), device)
             masks = None
@@ -124,14 +131,20 @@ def train(cfg: ModelConfig, tc: TrainConfig, batches: Iterator[dict],
                 masks = tuple(torch.as_tensor(m, device=device)
                               for m in plan.survivor_masks())
             state, metrics = step_fn(state, model_batch, masks)
+        if fault_model is not None and tracing:
+            registry.observe_fault_plan(step, plan)
         history.append(metrics)
         if on_step is not None:
             on_step(step, state, metrics)
-        if step % log_every == 0 or step == steps - 1:
+        log_step = step % log_every == 0 or step == steps - 1
+        if tracing or log_step:
             with obs_trace.span("round/blocking_fetch", round=step):
                 fetched = {k: float(v) for k, v in metrics.items()}
-            log(f"step {step:4d} loss {fetched['loss']:.4f} grad_norm "
-                f"{fetched['grad_norm']:.3f} ({time.perf_counter() - t0:.2f}s)")
+            if tracing:
+                registry.observe_train_step(step, fetched)
+            if log_step:
+                log(f"step {step:4d} loss {fetched['loss']:.4f} grad_norm "
+                    f"{fetched['grad_norm']:.3f} ({time.perf_counter() - t0:.2f}s)")
     # one transfer drains every step's still-on-device metrics
     keys = list(history[0]) if history else []
     table = torch.stack([torch.stack([h[k].float() for k in keys]) for h in history]).tolist() \

@@ -38,7 +38,10 @@ def test_the_scan_covers_every_ported_module():
     for name in ("repro_torch.core.ef_bv", "repro_torch.core.scafflix",
                  "repro_torch.core.fedp3", "repro_torch.core.sppm",
                  "repro_torch.data.federated", "repro_torch.configs.qwen1_5_4b",
-                 "repro_torch.examples.federated_logreg", "repro_torch.examples.prune_llm"):
+                 "repro_torch.examples.federated_logreg", "repro_torch.examples.prune_llm",
+                 "repro_torch.cohort.population", "repro_torch.cohort.engine",
+                 "repro_torch.cohort.accounting", "repro_torch.faults.transmit",
+                 "repro_torch.obs.metrics"):
         assert name in MODULES, name
 
 
@@ -84,6 +87,11 @@ def test_entry_points_default_to_the_card():
         efbv_init(4, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fedp3_train(FedP3Config(), [], [], [4, 2], 1, None, None)
+    from repro_torch.cohort import CohortEngine, Population, message_nbytes
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CohortEngine(Population(n_clients=100), cohort_size=20)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        message_nbytes(make_compressor("identity"), 8)
 
 
 def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
