@@ -21,7 +21,10 @@ the script exits nonzero without printing a result:
            PersonalizedBatcher answers 6 requests over 2 slots.  Every
            prefill and decode step is checked bitwise against serving the
            users' materialized params; serve/page_in ledger bytes must equal
-           the payload bytes of the misses; B1-B3 must have launched.
+           the payload bytes of the misses; B1-B3 must have launched.  The
+           first put's B2, B1 and B3 and the first page-in's B3 are held
+           bit for bit to their plain versions on their own inputs, 2^20
+           rows at a time.
   ref      the port's forward on the card agrees with the CPU on a small
            f32 model (stated tolerance), greedy tokens equal
   codec    the third path: the wire codecs at the full width of the delta
@@ -102,6 +105,33 @@ the script exits nonzero without printing a result:
            full-model payload through a corrupted attempt (seal, verify and
            corrupted-copy seconds).  The engine launches no kernel; B2 and
            B3 must launch in (d)
+  arch     the other architectures at full width.  (a) mamba2-2.7b whole
+           (64 SSD layers, d_model 2560, 80 heads of 64, d_state 128, chunk
+           256, tied vocab 50280, bf16, random weights from seed 0) served
+           as the serve phase serves danube: a qsgd_kernel DeltaStore of two
+           norm-personalized users (B2 + B1 per certified put; the norm
+           leaves include each block's gated SSD norm), a BlockPool (B3) and
+           the checked PersonalizedBatcher answering 6 requests over 2 slots
+           with 300-token prompts (longer than one 256-token SSD chunk), every
+           prefill and decode step bitwise equal to the materialized path,
+           serve/page_in bytes == the misses' payload bytes, B1-B3 launched
+           and their first calls held to the plain versions at this path's
+           5,278,520 x 512 shape.
+           (b) seamless-m4t-large-v2 whole (24 encoder + 24 decoder layers):
+           a ContinuousBatcher (2 slots, 4 requests) whose cache holds
+           enc_memory, and launch.serve's generate with seeded frame
+           embeddings (2, 16, 1024).  (c) llama4-scout-17b-a16e (4 of 48
+           layers: one period, 16 experts top-1 + shared, 256 vision tokens)
+           and dbrx-132b (2 of 40 layers, 16 experts top-4) at full width,
+           one after the other: prefill 2 x 288 tokens and 8 decode steps;
+           on the first MoE layer's prefill inputs moe_ffn(no_drop) within
+           2% of the f32 sum of its experts (shared expert too), and the
+           dropped assignments at capacity 1.25 are each expert's
+           assignments past C in token order of an f32 top-k.  (d) the reduced f32 configs
+           of the five and jamba's 8-layer period at reduced widths on the
+           card and on the CPU: logits within 1e-4 of their max, tokens
+           equal.  Prefill / decode ms, the device's busy share of one
+           decode step (torch.profiler) and the peaks are printed
   timing   B1-B3 and B6 (beside B2) at the serve path's shape, B4/B5 at the
            codec path's d, and B7/B8 (both modes, three score modes) at one
            full-width w_in (2560 x 6912 bf16) on the card (CUDA events,
@@ -182,6 +212,22 @@ COHORT_RTOL = 1e-5             # target_dist / root_norm, card vs CPU (sum order
 XMIT_FAULTS = dict(seed=7, drop_rate=0.2, corrupt_rate=0.2, max_retries=3)
 XMIT_CHILDREN = 16
 W_IN = (2560, 6912)            # one full-width h2o-danube-1.8b w_in
+# arch phase: full-width mamba2-2.7b served to the two users with prompts
+# longer than one SSD chunk (256); seamless served whole; the MoE configs at
+# full width, depth cut to (layers kept); the reduced f32 configs (and
+# jamba's own 8-layer period at reduced widths) on the card against the CPU
+MAMBA_ARCH, MAMBA_PROMPT = "mamba2-2.7b", 300
+SEAMLESS_ARCH, SEAMLESS_PROMPT, SEAMLESS_SRC = "seamless-m4t-large-v2", 32, 16
+MOE_CUTS = (("llama4-scout-17b-a16e", 4), ("dbrx-132b", 2))
+MOE_PROMPT, MOE_DECODE = 288, 8    # prompts longer than llama4's 256 vision tokens
+MOE_DENSE_RTOL = 2e-2              # bf16 moe_ffn vs the f32 sum of its experts, of the max
+ARCH_REDUCED = ("mamba2-2.7b", "seamless-m4t-large-v2", "llama4-scout-17b-a16e",
+                "dbrx-132b", "jamba-1.5-large-398b", "jamba period")
+JAMBA_PERIOD = ("mamba", "mamba", "mamba", "mamba", "attn", "mamba", "mamba", "mamba")
+ARCH_RTOL = 1e-4                   # f32 logits card vs CPU, of the max (SSD scan order)
+# serve and arch: rows per slice where the plain B1-B3 are held to the first
+# put's and page-in's kernel calls (mamba2-2.7b's delta is 5,278,520 rows)
+PROBE_SLICE_ROWS = 1 << 20
 # train phase: (label, SyncConfig fields, steps, n_groups, n_pods)
 TRAIN_SEQ, TRAIN_BATCH = 64, 2
 TRAIN_RUNS = (("dense", {"mode": "dense"}, 2, 1, 1),
@@ -339,11 +385,28 @@ def padded_mask(mask, n):
 
 
 # ---------------------------------------------------------------------------
+class TimedSteps:
+    """Batcher mixin: ``_timed(key, fn)`` appends fn()'s seconds on the
+    synchronized host clock to ``self.times[key]``."""
+
+    def _timed(self, key, fn):
+        import torch
+        on_card = self.device.type == "cuda"
+        if on_card:
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        out = fn()
+        if on_card:
+            torch.cuda.synchronize(self.device)
+        self.times[key].append(time.perf_counter() - t0)
+        return out
+
+
 def checked_batcher_class():
     import torch
     from repro_torch.serve import PersonalizedBatcher
 
-    class CheckedBatcher(PersonalizedBatcher):
+    class CheckedBatcher(TimedSteps, PersonalizedBatcher):
         """Runs the materialized path beside every delta-path step and
         requires bitwise-equal logits; times the delta path alone."""
 
@@ -354,16 +417,6 @@ def checked_batcher_class():
             self.times = {"prefill": [], "decode": [], "page_in": []}
             self.checked = 0
             super().__init__(*args, **kw)
-
-        def _timed(self, key, fn):
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            t0 = time.perf_counter()
-            out = fn()
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.times[key].append(time.perf_counter() - t0)
-            return out
 
         def _on_admit(self, slot, req):
             miss = req.user_id is not None and not self.pool.is_resident(req.user_id)
@@ -419,8 +472,15 @@ class MemMarks:
                            torch.cuda.memory_allocated(self.device)))
         torch.cuda.reset_peak_memory_stats(self.device)
 
+    def summary(self):
+        if not self.marks:
+            return "memory: not measured off the card"
+        return "memory GiB (peak during / allocated after): " + ", ".join(
+            f"{k} {p / 2**30:.2f}/{a / 2**30:.2f}" for k, p, a in self.marks) + \
+            f"; overall peak {max(p for _, p, _ in self.marks) / 2**30:.2f}"
 
-def breakdown(cfg, store, pool, engine, device):
+
+def breakdown(cfg, store, pool, engine, device, phase, prompt, max_len):
     """Where one slot's delta-path decode step goes: the f32 ``eff`` rebuild
     (gather + add), the cast to the bf16 tree, and the model's decode_step
     (CUDA events, medians)."""
@@ -434,24 +494,36 @@ def breakdown(cfg, store, pool, engine, device):
     t_cast = cuda_ms(lambda: debucketize(eff, store.layout))
     params = debucketize(eff, store.layout)
     del eff
-    tok = torch.ones((1, PROMPT), dtype=torch.long, device=device)
-    t_pre = cuda_ms(lambda: prefill(params, cfg, {"tokens": tok}, cache_len=MAX_LEN))
-    _, cache = prefill(params, cfg, {"tokens": tok}, cache_len=MAX_LEN)
+    tok = torch.ones((1, prompt), dtype=torch.long, device=device)
+    t_pre = cuda_ms(lambda: prefill(params, cfg, {"tokens": tok}, cache_len=max_len))
+    _, cache = prefill(params, cfg, {"tokens": tok}, cache_len=max_len)
     t_dec = cuda_ms(lambda: decode_step(params, cfg, tok[:, :1], cache))
-    log("serve", f"one slot's decode step: eff gather+add {t_eff:.2f} ms, cast to "
-                 f"bf16 tree {t_cast:.2f} ms, decode_step {t_dec:.2f} ms; "
-                 f"prefill({PROMPT} tokens) {t_pre:.2f} ms (CUDA events, medians)")
+    busy = device_busy_ms(lambda: decode_step(params, cfg, tok[:, :1], cache), device)
+    log(phase, f"one slot's decode step: eff gather+add {t_eff:.2f} ms, cast to "
+               f"bf16 tree {t_cast:.2f} ms, decode_step {t_dec:.2f} ms "
+               f"({busy_note(busy, t_dec)}); prefill({prompt} tokens) {t_pre:.2f} ms "
+               f"(CUDA events, medians)")
 
 
 def phase_serve(cfg, device):
     """The main path.  Returns (launch counts, rows of the quantized delta,
     one user's payload bytes)."""
+    return serve_users(cfg, device, "serve", PROMPT, MAX_LEN)
+
+
+def serve_users(cfg, device, phase, prompt, max_len):
+    """Personalized serving of ``cfg`` at full width: a qsgd_kernel store
+    of two norm-personalized users (B2 + B1 per put), a BlockPool (B3) and
+    the checked PersonalizedBatcher answering REQUEST_USERS' requests with
+    ``prompt``-token prompts over N_SLOTS slots.  Returns (launch counts,
+    rows of the quantized delta, one user's payload bytes)."""
     import numpy as np
     import torch
     from repro_torch import kernels
     from repro_torch.comm.buckets import bucketize
     from repro_torch.comm.ledger import PAGE_IN_TAG, PAGE_OUT_TAG
     from repro_torch.core.compressors import make_compressor
+    from repro_torch.kernels import bitpack, ops, quant8, ref
     from repro_torch.kernels.ops import tile_rows
     from repro_torch.models import init_params
     from repro_torch.serve import BlockPool, DeltaStore, personalize_leaves
@@ -464,25 +536,37 @@ def phase_serve(cfg, device):
     t0 = time.perf_counter()
     params = init_params(0, cfg, device=device)
     n_params = sum(int(leaf.numel()) for leaf in tree_leaves(params))
-    log("serve", f"{cfg.name}: {n_params} params ({cfg.dtype}) initialised "
+    log(phase, f"{cfg.name}: {n_params} params ({cfg.dtype}) initialised "
                  f"in {time.perf_counter() - t0:.2f} s")
     mem.mark("init")
 
-    # -- main path, part 1: the store (B2 + B1 per put, B3 in the certificate)
+    # -- main path, part 1: the store (B2 + B1 per put, B3 in the certificate);
+    # the first put's three launches held to their plain versions
+    b3 = KernelProbe(bitpack, "unpack_dequant_2d", ref.unpack_dequant_ref,
+                     slice_rows=PROBE_SLICE_ROWS)
+    probes = {"put B2": KernelProbe(b3, "quant_pack_2d", ref.quant_pack_ref,
+                                    slice_rows=PROBE_SLICE_ROWS),
+              "put B1": KernelProbe(quant8, "quant_dequant_2d", ref.quant_dequant_ref,
+                                    slice_rows=PROBE_SLICE_ROWS),
+              "put B3": b3}
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     store = DeltaStore(params, make_compressor("qsgd_kernel", bits=8), seed=7)
-    for uid in USERS:
-        pers = personalize_leaves(params, fold_seed(1, uid), match=("norm",))
-        store.put(uid, pers)
-        del pers
+    ops._q8, ops._bp = probes["put B1"], probes["put B2"]
+    try:
+        for uid in USERS:
+            pers = personalize_leaves(params, fold_seed(1, uid), match=("norm",))
+            store.put(uid, pers)
+            del pers
+    finally:
+        ops._q8, ops._bp = quant8, bitpack
     if on_card:
         torch.cuda.synchronize(device)
     counts = kernels.launch_counts()
     del params
     mem.mark("puts")
     rows = tile_rows(store.layout.padded_d)
-    log("serve", f"store: {store.layout.n_buckets} blocks of {store.layout.bucket_size}, "
+    log(phase, f"store: {store.layout.n_buckets} blocks of {store.layout.bucket_size}, "
                  f"delta rows {rows}; {len(USERS)} certified puts in "
                  f"{time.perf_counter() - t0:.2f} s; payload bytes "
                  f"{[store.nbytes(u) for u in USERS]}; page_out "
@@ -501,17 +585,24 @@ def phase_serve(cfg, device):
     mem.mark("oracle")
 
     # -- main path, part 2: page-in (B3) and serving
+    # the first page-in's B3 held to its plain version
+    probes["page-in B3"] = KernelProbe(bitpack, "unpack_dequant_2d", ref.unpack_dequant_ref,
+                                       slice_rows=PROBE_SLICE_ROWS)
     kernels.reset_launch_counts()
     pool = BlockPool(store, capacity_blocks=need)
     Batcher = checked_batcher_class()
-    b = Batcher(cfg, store, pool, n_slots=N_SLOTS, max_len=MAX_LEN, eff_by_uid=eff_by_uid)
+    b = Batcher(cfg, store, pool, n_slots=N_SLOTS, max_len=max_len, eff_by_uid=eff_by_uid)
     rng = np.random.default_rng(5)
-    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, PROMPT),
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, prompt),
                     max_new=MAX_NEW, user_id=u) for i, u in enumerate(REQUEST_USERS)]
     for r in reqs:
         b.submit(r)
     t0 = time.perf_counter()
-    stats = b.run(max_ticks=1000)
+    ops._bp = probes["page-in B3"]
+    try:
+        stats = b.run(max_ticks=1000)
+    finally:
+        ops._bp = bitpack
     if on_card:
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
@@ -528,25 +619,32 @@ def phase_serve(cfg, device):
     require(pool.misses == len(USERS), f"{pool.misses} misses, expected {len(USERS)}")
     require(page_in == want == pool.bytes_paged_in,
             f"serve/page_in {page_in} != payload bytes of the misses {want}")
+    for name, pr in probes.items():
+        require(pr.checked is not None and pr.checked[0] == (rows, quant8.QBLOCK),
+                f"{name}'s first call on this path was not the ({rows}, {quant8.QBLOCK}) "
+                f"delta: {pr.checked}")
+        require(pr.checked[1], f"{name} on the {cfg.name} delta != plain: {pr.checked}")
     pre, dec = b.times["prefill"], b.times["decode"]
     busy = sum(pre) + sum(dec)
     ms = lambda xs: [round(1e3 * t, 2) for t in xs]
-    log("serve", f"{len(reqs)} requests ({stats.tokens_out} tokens) over {N_SLOTS} slots "
+    log(phase, f"{len(reqs)} requests ({stats.tokens_out} tokens) over {N_SLOTS} slots "
                  f"in {wall:.2f} s with checks; {b.checked} steps bitwise equal to "
                  f"the materialized path (prefill + every decode step)")
-    log("serve", f"delta path (host clock, synchronized): prefill ms {ms(pre)}; decode "
+    log(phase, f"delta path (host clock, synchronized): prefill ms {ms(pre)}; decode "
                  f"median {1e3 * statistics.median(dec):.2f} ms/step (n={len(dec)}, "
                  f"first {1e3 * dec[0]:.2f}); {stats.tokens_out / busy:.2f} tokens/s over "
                  f"prefill+decode time; page-in ms {ms(b.times['page_in'])}")
-    log("serve", f"serve/page_in {page_in} bytes == payload bytes of {pool.misses} misses; "
+    log(phase, f"serve/page_in {page_in} bytes == payload bytes of {pool.misses} misses; "
                  f"pool {pool.stats()}")
+    log(phase, "on this path's own inputs, held bit for bit to the plain versions "
+                 f"{PROBE_SLICE_ROWS} rows at a time (the first call of each): " + ", ".join(
+                     f"{k} {pr.checked[0]} (max_abs_err {pr.checked[2]})"
+                     for k, pr in probes.items()))
     if on_card:
-        breakdown(cfg, store, pool, b.engine, device)
+        breakdown(cfg, store, pool, b.engine, device, phase, prompt, max_len)
         mem.mark("breakdown")
-        log("serve", "memory GiB (peak during / allocated after): " + ", ".join(
-            f"{k} {p / 2**30:.2f}/{a / 2**30:.2f}" for k, p, a in mem.marks)
-            + f"; overall peak {max(p for _, p, _ in mem.marks) / 2**30:.2f}")
-    log("serve", "kernels " + json.dumps(counts))
+        log(phase, mem.summary())
+    log(phase, "kernels " + json.dumps(counts))
     payload_bytes = store.nbytes(USERS[0])
     del b, pool, store, eff_by_uid
     gc.collect()
@@ -707,8 +805,7 @@ def phase_prune(cfg, device, saved):
                  f"masks == symwanda.prune; B7 vs mask_nm: {nm_differ} differing groups, "
                  f"all with tied scores; {time.perf_counter() - t0:.2f} s")
     if on_card:
-        log("prune", "memory GiB (peak during / allocated after): " + ", ".join(
-            f"{k} {p / 2**30:.2f}/{a / 2**30:.2f}" for k, p, a in mem.marks))
+        log("prune", mem.summary())
     layer = (stack[0].clone(), X)
     del params, stack
     gc.collect()
@@ -916,9 +1013,7 @@ def phase_codec(cfg, device, serve_payload_bytes):
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-        log("codec", "memory GiB (peak during / allocated after): " + ", ".join(
-            f"{k2} {pk / 2**30:.2f}/{a / 2**30:.2f}" for k2, pk, a in mem.marks)
-            + f"; overall peak {max(pk for _, pk, _ in mem.marks) / 2**30:.2f}")
+        log("codec", mem.summary())
     log("codec", f"torch.topk(|x|, k={k}) over d={d}: {topk_s:.3f} s; phase "
                  f"{time.perf_counter() - t_phase:.2f} s; kernels {json.dumps(path)}")
     return path, d
@@ -974,13 +1069,15 @@ class KernelProbe:
     """Stands in for a kernel module inside the module that calls it, for one
     run: the run's first call of ``fn`` (B1: a full chunk of step 0's delta;
     B2: the round report's probe, or a transmitted payload's encode; B3: a
-    delivered payload's decode) is held bit for bit against its plain version
-    on the same inputs.  The kernel call itself is the main path's, counted
+    delivered payload's decode; in serve_users, the first certified put's B2,
+    B1 and B3 and the first page-in's B3) is held bit for bit against its
+    plain version on the same inputs.  The kernel call itself is the main path's, counted
     by the wrapper as always; the plain version launches nothing.  Probes
     chain: a probe of another probe stands in for both functions."""
 
-    def __init__(self, module, fn, plain):
+    def __init__(self, module, fn, plain, slice_rows=None):
         self._mod, self._fn, self._plain = module, fn, plain
+        self._slice_rows = slice_rows
         self.checked = None
 
     def __getattr__(self, name):
@@ -992,6 +1089,8 @@ class KernelProbe:
         kernel = getattr(self._mod, self._fn)
         if self.checked is not None:
             return kernel(*args, **kw)
+        if self._slice_rows:
+            return self._call_sliced(kernel, args, kw)
         ins = tuple(a.clone() if hasattr(a, "clone") else a for a in args)
         out = kernel(*args, **kw)
         want = self._plain(*ins, **kw)
@@ -1000,6 +1099,28 @@ class KernelProbe:
                         max(max_abs_err(g, w) for g, w in zip(got, want)))
         self.inputs = (ins, kw)                         # for timing after the run
         del want
+        return out
+
+    def _call_sliced(self, kernel, args, kw):
+        """With ``slice_rows``: the plain version first, ``slice_rows`` rows
+        at a time over the same inputs (every tensor argument and output
+        has the rows on axis 0, and the kernels work row by row), then the
+        kernel, held slice by slice.  Only the plain output sits beside the
+        main path's peak: no copy of the inputs, no full-size temporaries."""
+        n, step = args[0].shape[0], self._slice_rows
+        cuts = range(0, n, step)
+        want = [self._plain(*(a[r:r + step] if hasattr(a, "shape") else a for a in args), **kw)
+                for r in cuts]
+        out = kernel(*args, **kw)
+        got = out if isinstance(out, tuple) else (out,)
+        equal, err = True, 0.0
+        for i, r in enumerate(cuts):
+            w = want[i] if isinstance(want[i], tuple) else (want[i],)
+            want[i] = None
+            for g, wi in zip(got, w):
+                equal = equal and bits_equal(g[r:r + step], wi)
+                err = max(err, max_abs_err(g[r:r + step], wi))
+        self.checked = (tuple(args[0].shape), equal, err)
         return out
 
     def time_ms(self):
@@ -1623,6 +1744,323 @@ def phase_cohort(device, d, payload_bytes, pop_size=COHORT_POP, cohort=COHORT_SI
 
 
 # ---------------------------------------------------------------------------
+def timed_batcher_class():
+    import torch
+    from repro_torch.training.serving import ContinuousBatcher
+
+    class TimedBatcher(TimedSteps, ContinuousBatcher):
+        """Times each prefill and decode step and requires finite logits."""
+
+        def __init__(self, *args, **kw):
+            self.times = {"prefill": [], "decode": []}
+            super().__init__(*args, **kw)
+
+        def _finite(self, key, out):
+            require(bool(torch.isfinite(out[0].float()).all()), f"{key}: non-finite logits")
+            return out
+
+        def _model_prefill(self, batch):
+            return self._finite("prefill", self._timed(
+                "prefill", lambda: super(TimedBatcher, self)._model_prefill(batch)))
+
+        def _model_decode(self, tok):
+            return self._finite("decode", self._timed(
+                "decode", lambda: super(TimedBatcher, self)._model_decode(tok)))
+
+    return TimedBatcher
+
+
+def device_busy_ms(fn, device):
+    """Kernel time on the card of one call of ``fn()``: the durations of the
+    CUDA activity torch.profiler records, summed (0.0 if it records none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(device)
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def busy_note(busy_ms, wall_ms):
+    """The device's busy and idle share of an unprofiled ``wall_ms`` step."""
+    if busy_ms <= 0:
+        return "device busy: not measured (no CUDA activity traced)"
+    return (f"device busy {busy_ms:.2f} ms of it by torch.profiler, idle "
+            f"{100 * (1 - busy_ms / wall_ms):.1f}%")
+
+
+def free_cached(device):
+    """Free what is unreferenced, on the card too."""
+    import torch
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def decode_run(cfg, params, batch, n, device):
+    """Prefill ``batch``, then ``n`` greedy decode steps -> (logits of each
+    step (prefill first), greedy tokens (B, n + 1), prefill s, decode s a
+    step, the cache), each step synchronized."""
+    import torch
+    from repro_torch.models import decode_step, prefill
+    sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cfg, batch, cache_len=batch["tokens"].shape[1] + n + 1)
+    sync()
+    t_pre, steps, outs = time.perf_counter() - t0, [], [logits]
+    tok = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
+    toks = [tok]
+    for _ in range(n):
+        t0 = time.perf_counter()
+        logits, cache = decode_step(params, cfg, tok, cache)
+        sync()
+        steps.append(time.perf_counter() - t0)
+        outs.append(logits)
+        tok = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
+        toks.append(tok)
+    return outs, torch.cat(toks, 1), t_pre, steps, cache
+
+
+def check_moe_layer(cfg, moe_params, h):
+    """One MoE layer's real inputs ``h`` (B, S, d): moe_ffn(no_drop=True)
+    against the per-token sum of its chosen experts (and the shared one)
+    computed in f32, and route's drops at the config's capacity_factor
+    against the assignments past C in each expert, in token order, of an
+    f32 top-k of the router probabilities.  Returns (relative error, T, C,
+    dropped)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import moe as moe_lib
+
+    m = cfg.moe
+    E, K = m.num_experts, m.top_k
+    require(cfg.mlp_act == "silu", f"{cfg.name}: the f32 reference has silu experts")
+    kw = dict(num_experts=E, top_k=K, capacity_factor=m.capacity_factor, act=cfg.mlp_act,
+              gated=cfg.mlp_gated, shared_expert=m.shared_expert)
+    y, _ = moe_lib.moe_ffn(moe_params, h, **kw, no_drop=True)
+    xt = h.reshape(-1, h.shape[-1])
+    T = xt.shape[0]
+    probs = torch.softmax(xt.float() @ moe_params["router"], -1)
+    gw, gi = torch.topk(probs, K, dim=-1)
+    gw = gw / gw.sum(-1, keepdim=True)
+    x32 = xt.float()
+
+    def ffn(x, w_in, w_gate, w_out):
+        h = x @ w_in.float()
+        h = F.silu(x @ w_gate.float()) * h if cfg.mlp_gated else F.silu(h)
+        return h @ w_out.float()
+
+    dense = torch.zeros_like(x32)
+    for e in range(E):
+        rows, ks = torch.nonzero(gi == e, as_tuple=True)
+        if rows.numel() == 0:
+            continue
+        w = moe_params
+        dense.index_add_(0, rows, gw[rows, ks, None] * ffn(
+            x32[rows], w["w_in"][e], w["w_gate"][e] if cfg.mlp_gated else None, w["w_out"][e]))
+    if m.shared_expert:
+        w = moe_params["shared"]
+        dense += ffn(x32, w["w_in"], w.get("w_gate"), w["w_out"])
+    err = float((y.reshape(T, -1).float() - dense).abs().max() / dense.abs().max())
+    require(err <= MOE_DENSE_RTOL, f"{cfg.name}: moe_ffn(no_drop) vs the f32 expert sum "
+                                   f"{err:.3g} > {MOE_DENSE_RTOL} of the max")
+    # assignment t*K + k; each expert keeps its first C in that order
+    C = max(1, int(T * K * m.capacity_factor / E))
+    flat = gi.reshape(-1)
+    drop = torch.zeros(T * K, dtype=torch.bool, device=flat.device)
+    for e in range(E):
+        drop[torch.nonzero(flat == e).flatten()[C:]] = True
+    r = moe_lib.route(moe_params["router"], xt, E, K, m.capacity_factor)
+    require(r.capacity == C and torch.equal(~r.keep, drop),
+            f"{cfg.name}: route's drops (C = {r.capacity}, {int((~r.keep).sum())}) != the "
+            f"assignments past C = {C} in each expert ({int(drop.sum())})")
+    return err, T, C, int(drop.sum())
+
+
+def arch_moe(device, arch, n_layers):
+    """Full width, depth cut to ``n_layers``: prefill MOE_PROMPT tokens (2
+    prompts) and MOE_DECODE greedy steps; the first MoE layer's input is
+    recorded during the prefill and checked by check_moe_layer."""
+    import numpy as np
+    import torch
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import side_inputs
+    from repro_torch.models import decode_step, init_params, moe as moe_lib, period_info
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    full = get_config(arch)
+    cfg = replace(full, num_layers=n_layers)
+    free_cached(device)
+    mem = MemMarks(device)
+    mem.mark("before")
+    t0 = time.perf_counter()
+    params = init_params(0, cfg, device=device)
+    n_params = sum(int(a.numel()) for a in tree_leaves(params))
+    init_s = time.perf_counter() - t0
+    mem.mark("init")                  # the f32 draw of one stacked expert leaf on top
+    rng = np.random.default_rng(9)
+    batch = {"tokens": torch.as_tensor(rng.integers(1, cfg.vocab_size, (2, MOE_PROMPT)),
+                                       device=device),
+             **side_inputs(cfg, 2, 0, device)}
+    seen = {}
+    apply = moe_lib.moe_apply
+
+    def recording(p, x, **kw):
+        seen.setdefault("h", x.detach().clone())
+        return apply(p, x, **kw)
+
+    moe_lib.moe_apply = recording
+    try:
+        outs, toks, t_pre, steps, cache = decode_run(cfg, params, batch, MOE_DECODE, device)
+    finally:
+        moe_lib.moe_apply = apply
+    mem.mark("prefill + decode")
+    step_ms = 1e3 * statistics.median(steps)
+    busy = device_busy_ms(lambda: decode_step(params, cfg, toks[:, -1:], cache), device) \
+        if device.type == "cuda" else 0.0
+    require(all(bool(torch.isfinite(o.float()).all()) for o in outs), f"{arch}: non-finite")
+    require(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size, f"{arch}: token range")
+    j = period_info(cfg)[3].index(True)             # the first MoE layer
+    moe_params = tree_map(lambda a: a[0], params["blocks"][f"pos{j}"]["moe"])
+    err, T, C, dropped = check_moe_layer(cfg, moe_params, seen["h"])
+    log("arch", f"{arch}: {n_layers} of {full.num_layers} layers at full width "
+                f"({n_params} params, {cfg.dtype}, init {init_s:.2f} s); prefill 2 x "
+                f"{MOE_PROMPT} tokens{' (256 vision)' if cfg.vision_tokens else ''} "
+                f"{1e3 * t_pre:.2f} ms, decode median {step_ms:.2f} ms/step (n={len(steps)}, "
+                f"first {1e3 * steps[0]:.2f}; {busy_note(busy, step_ms)}); {mem.summary()}")
+    log("arch", f"{arch}: layer {j}'s MoE on its prefill inputs (T={T}, top-"
+                f"{cfg.moe.top_k} of {cfg.moe.num_experts}"
+                f"{' + shared' if cfg.moe.shared_expert else ''}): moe_ffn(no_drop) vs the "
+                f"f32 expert sum {err:.3g} of the max (<= {MOE_DENSE_RTOL}); capacity "
+                f"{cfg.moe.capacity_factor}: C={C}, {dropped} of {T * cfg.moe.top_k} "
+                f"assignments dropped, the same set as each expert's assignments past C in "
+                f"token order of an f32 top-k")
+    del params, outs, seen, cache, moe_params
+    free_cached(device)
+
+
+def arch_seamless(device):
+    """seamless-m4t-large-v2 whole: the continuous batcher (2 slots, 4
+    requests, the batcher's zero frame embeddings) and launch.serve's
+    generate with seeded frame embeddings (2, 16, 1024)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate, side_inputs
+    from repro_torch.models import decode_step, init_params
+    from repro_torch.training.serving import Request
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_config(SEAMLESS_ARCH)
+    free_cached(device)
+    marks = MemMarks(device)
+    params = init_params(0, cfg, device=device)
+    n_params = sum(int(a.numel()) for a in tree_leaves(params))
+    b = timed_batcher_class()(cfg, params, n_slots=N_SLOTS,
+                              max_len=SEAMLESS_PROMPT + 2 * MAX_NEW + 2)
+    rng = np.random.default_rng(6)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, SEAMLESS_PROMPT),
+                    max_new=MAX_NEW) for i in range(4)]
+    for r in reqs:
+        b.submit(r)
+    stats = b.run(max_ticks=200)
+    require(stats.completed == 4 and all(len(r.generated) == MAX_NEW and
+                                         all(0 <= t < cfg.vocab_size for t in r.generated)
+                                         for r in reqs), "seamless: batcher tokens")
+    mem = b.cache.get("enc_memory")
+    require(mem is not None and tuple(mem.shape) == (N_SLOTS, 8, cfg.enc_d_model),
+            f"seamless: the cache's enc_memory {None if mem is None else tuple(mem.shape)}")
+    side = side_inputs(cfg, 2, 0, device, src_len=SEAMLESS_SRC)
+    prompt = torch.as_tensor(rng.integers(1, cfg.vocab_size, (2, SEAMLESS_PROMPT)),
+                             device=device)
+    t0 = time.perf_counter()
+    out = generate(cfg, params, prompt, MAX_NEW, **side)
+    gen_s = time.perf_counter() - t0
+    require(out.shape == (2, MAX_NEW) and 0 <= out.min() and out.max() < cfg.vocab_size,
+            "seamless: generate tokens")
+    marks.mark("batcher + generate")
+    pre, dec = b.times["prefill"], b.times["decode"]
+    step_ms = 1e3 * statistics.median(dec)
+    tok = torch.ones((N_SLOTS, 1), dtype=torch.long, device=device)
+    busy = device_busy_ms(lambda: decode_step(params, cfg, tok, b.cache), device) \
+        if device.type == "cuda" else 0.0
+    log("arch", f"{SEAMLESS_ARCH}: {cfg.enc_layers} encoder + {cfg.num_layers} decoder "
+                f"layers at full size ({n_params} params, {cfg.dtype}); ContinuousBatcher "
+                f"{len(reqs)} requests over {N_SLOTS} slots: prefill ms "
+                f"{[round(1e3 * t, 2) for t in pre]}, decode median "
+                f"{step_ms:.2f} ms/step (n={len(dec)}; {busy_note(busy, step_ms)}); cache "
+                f"enc_memory {tuple(mem.shape)}; generate(src_embeds "
+                f"{tuple(side['src_embeds'].shape)}) {MAX_NEW} tokens in {gen_s:.2f} s; "
+                f"{marks.summary()}")
+    del params, b
+    free_cached(device)
+
+
+def arch_reduced(device):
+    """The reduced f32 configs (and jamba's 8-layer period at reduced
+    widths) on the card and on the CPU from the same weights and inputs:
+    prefill + 4 greedy decode steps, logits within ARCH_RTOL of their max,
+    tokens equal.  Returns {config: largest relative difference}."""
+    import numpy as np
+    import torch
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.utils.tree import tree_map
+
+    cpu, errs = torch.device("cpu"), {}
+    for name in ARCH_REDUCED:
+        if name == "jamba period":
+            cfg = replace(get_config("jamba-1.5-large-398b").reduced(), num_layers=8,
+                          layer_pattern=JAMBA_PERIOD)
+        else:
+            cfg = get_config(name).reduced()
+        p_cpu = init_params(4, cfg, device="cpu")
+        p_dev = tree_map(lambda a: a.to(device), p_cpu)
+        rng = np.random.default_rng(4)
+        batch = {"tokens": torch.as_tensor(rng.integers(1, cfg.vocab_size, (2, 20)))}
+        if cfg.vision_tokens:
+            batch["vision_embeds"] = torch.as_tensor(
+                0.02 * rng.normal(size=(2, cfg.vision_tokens, cfg.d_model)), dtype=torch.float32)
+        if cfg.enc_layers:
+            batch["src_embeds"] = torch.as_tensor(
+                0.02 * rng.normal(size=(2, 12, cfg.enc_d_model)), dtype=torch.float32)
+        runs = [decode_run(cfg, p, {k: v.to(dev) for k, v in batch.items()}, 4, dev)
+                for p, dev in ((p_dev, device), (p_cpu, cpu))]
+        (card, ctoks, *_), (host, htoks, *_) = runs
+        err = max(float((a.cpu() - b).abs().max() / b.abs().max()) for a, b in zip(card, host))
+        require(err <= ARCH_RTOL, f"reduced {name}: logits card vs CPU {err:.3g} > {ARCH_RTOL}")
+        require(torch.equal(ctoks.cpu(), htoks), f"reduced {name}: greedy tokens card != CPU")
+        errs[name] = err
+    log("arch", "reduced f32 card vs CPU, prefill + 4 decode steps, max |diff| / max |logit|: "
+                + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                + f" (<= {ARCH_RTOL}); greedy tokens equal")
+    return errs
+
+
+def phase_arch(device):
+    """The other architectures.  (a) mamba2-2.7b at full width served to two
+    personalized users (serve_users: B1-B3), (b) seamless whole, (c) llama4
+    and dbrx at full width with their depth cut, (d) the reduced configs on
+    the card against the CPU.  Returns the launch counts of (a)."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    counts = serve_users(get_config(MAMBA_ARCH), device, "arch", MAMBA_PROMPT,
+                         MAMBA_PROMPT + 2 * MAX_NEW + 2)[0]
+    arch_seamless(device)
+    for arch, n_layers in MOE_CUTS:
+        arch_moe(device, arch, n_layers)
+    arch_reduced(device)
+    log("arch", f"phase {time.perf_counter() - t0:.2f} s")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 def cuda_ms(fn, reps=5, warmup=1):
     """Median of ``reps`` CUDA-event timings of ``fn()``, after ``warmup``."""
     import torch
@@ -1942,13 +2380,18 @@ def main():
     cohort_counts = phase_cohort(device, d, serve_payload_bytes)
     for kid, name in (("B2", "quant_pack_2d"), ("B3", "unpack_dequant_2d")):
         require(cohort_counts[name] > 0, f"{kid} {name} was not launched on the cohort path")
-    # each kernel's launches on the paths that exercise it (B1: serve + train;
-    # B2: serve + train + cohort; B3: serve + cohort)
+    arch_counts = phase_arch(device)
+    for kid, name, _, _ in KERNEL_INFO:
+        require(arch_counts[name] > 0, f"{kid} {name} was not launched on the arch path")
+    # each kernel's launches on the paths that exercise it (B1: serve + train +
+    # arch; B2: serve + train + cohort + arch; B3: serve + cohort + arch)
     launches = {**counts, **{name: codec_counts[name] for _, name, _, _, _ in CODEC_INFO}}
     for name in ("quant_dequant_2d", "quant_pack_2d"):
         launches[name] += train_counts[name]
     for name in ("quant_pack_2d", "unpack_dequant_2d"):
         launches[name] += cohort_counts[name]
+    for _, name, _, _ in KERNEL_INFO:
+        launches[name] += arch_counts[name]
     kernels = phase_timing(rows, device, launches)
     kernels += phase_mask_timing(d, device, launches)
     kernels += phase_prune_timing(layer, prune_counts, selecting, prune_errs, wide_counts)

@@ -260,8 +260,10 @@ def list_configs() -> list:
 def _ensure_loaded():
     if _REGISTRY:
         return
-    # the dense decoders the port runs (registers each); the MoE, Mamba,
-    # encoder-decoder and vision configs wait for ROADMAP Queue 1, item 4
-    from repro_torch.configs import (chameleon_34b, h2o_danube_1_8b,  # noqa: F401
-                                     nemotron_4_15b, qwen1_5_4b, qwen1_5_110b)
+    # every architecture of the JAX package (each module registers itself)
+    from repro_torch.configs import (chameleon_34b, dbrx_132b,  # noqa: F401
+                                     h2o_danube_1_8b, jamba_1_5_large_398b,
+                                     llama4_scout_17b_a16e, mamba2_2_7b,
+                                     nemotron_4_15b, qwen1_5_4b, qwen1_5_110b,
+                                     seamless_m4t_large_v2)
 

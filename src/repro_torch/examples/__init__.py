@@ -8,6 +8,8 @@
   python -m repro_torch.examples.federated_logreg  EF-BV / EF21 / DIANA and
                                                    Scafflix (Ch. 2, 3)
   python -m repro_torch.examples.cohort_squeeze    SPPM-AS (Ch. 5)
+  python -m repro_torch.examples.serve_decode      batched prefill + decode of
+                                                   any architecture (reduced)
 
 Each runs on the card unless ``--device cpu`` is given, and raises where
 there is no card.

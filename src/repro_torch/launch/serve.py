@@ -4,9 +4,11 @@
       --reduced --batch 2 --gen 8            # on the card
   ... --device cpu                           # on the CPU
 
-Weights are random, from ``--seed``.  Logits are trimmed to ``vocab_size``
-before the argmax.  (The JAX launcher's ``--dry-run`` is TPU tooling and is
-not ported.)
+Weights are random, from ``--seed``; so are the encoder's frame embeddings
+(encoder-decoder configs) and the vision stub's patch embeddings (vision
+configs), each from its own seeded generator.  Logits are trimmed to
+``vocab_size`` before the argmax.  (The JAX launcher's ``--dry-run`` is TPU
+tooling and is not ported.)
 """
 from __future__ import annotations
 
@@ -16,12 +18,19 @@ import numpy as np
 import torch
 
 
-def generate(cfg, params, prompt: torch.Tensor, gen: int) -> np.ndarray:
-    """Greedy decode ``gen`` tokens after ``prompt`` (B, L) -> (B, gen)."""
+def generate(cfg, params, prompt: torch.Tensor, gen: int, src_embeds=None,
+             vision_embeds=None) -> np.ndarray:
+    """Greedy decode ``gen`` tokens after ``prompt`` (B, L) -> (B, gen).
+    ``src_embeds`` (B, S_src, De) feeds the encoder and ``vision_embeds``
+    (B, nv, D) the vision stub, where the config has them."""
     from repro_torch.models import decode_step, prefill
 
-    logits, cache = prefill(params, cfg, {"tokens": prompt},
-                            cache_len=prompt.shape[1] + gen + 1)
+    batch = {"tokens": prompt}
+    if src_embeds is not None:
+        batch["src_embeds"] = src_embeds
+    if vision_embeds is not None:
+        batch["vision_embeds"] = vision_embeds
+    logits, cache = prefill(params, cfg, batch, cache_len=prompt.shape[1] + gen + 1)
     tok = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
     toks = []
     for _ in range(gen):
@@ -29,6 +38,25 @@ def generate(cfg, params, prompt: torch.Tensor, gen: int) -> np.ndarray:
         tok = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
         toks.append(tok[:, 0])
     return torch.stack(toks, 1).cpu().numpy()
+
+
+def side_inputs(cfg, batch: int, seed: int, device, src_len: int = 16) -> dict:
+    """0.02 * N(0, 1) frame embeddings (B, src_len, De) and patch embeddings
+    (B, nv, D) for the configs that take them, from generators seeded with
+    ``seed + 1`` and ``seed + 2`` (the JAX launcher's keys 1 and 2; not its
+    values)."""
+    from repro_torch.utils.device import make_generator
+
+    out = {}
+    if cfg.enc_layers:
+        g = make_generator(seed + 1, device)
+        out["src_embeds"] = 0.02 * torch.randn(
+            (batch, src_len, cfg.enc_d_model or cfg.d_model), generator=g, device=device)
+    if cfg.vision_tokens:
+        g = make_generator(seed + 2, device)
+        out["vision_embeds"] = 0.02 * torch.randn(
+            (batch, cfg.vision_tokens, cfg.d_model), generator=g, device=device)
+    return out
 
 
 def main(argv=None):
@@ -54,7 +82,8 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     prompt = torch.as_tensor(rng.integers(1, cfg.vocab_size, (args.batch, 16)),
                              device=device)
-    out = generate(cfg, params, prompt, args.gen)
+    out = generate(cfg, params, prompt, args.gen,
+                   **side_inputs(cfg, args.batch, args.seed, device))
     print("decoded:", out.tolist())
     return out
 

@@ -27,17 +27,21 @@ from typing import List, Sequence
 import torch
 
 from repro_torch.comm.buckets import bucketize, debucketize
-from repro_torch.models import decode_step, prefill as model_prefill, require_supported
+from repro_torch.models import decode_step, prefill as model_prefill
 from repro_torch.serve.deltas import DeltaStore
 from repro_torch.serve.pool import BlockPool
 from repro_torch.training.serving import ContinuousBatcher, Request
 
 
 class DeltaServeEngine:
-    """Prefill/decode where each batch slot applies its own delta."""
+    """Prefill/decode where each batch slot applies its own delta.  Serves
+    every decoder-only config (dense, MoE, Mamba, hybrid); refuses
+    encoder-decoder and vision configs, as the reference does."""
 
     def __init__(self, cfg, store: DeltaStore, max_len: int = 128):
-        require_supported(cfg)          # decoder-only attention models
+        if cfg.enc_layers or cfg.vision_tokens:
+            raise NotImplementedError(
+                "DeltaServeEngine serves decoder-only configs")
         self.cfg = cfg
         self.store = store
         self.layout = store.layout

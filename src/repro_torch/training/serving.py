@@ -122,6 +122,16 @@ class ContinuousBatcher:
             for (i, r), c in zip(live, ctxs):
                 batch_tokens[i, maxlen - len(c):] = c
             batch = {"tokens": torch.as_tensor(batch_tokens, device=self.device)}
+            # the encoder's and the vision stub's inputs: zeros, as the
+            # reference's batcher feeds them
+            if self.cfg.enc_layers:
+                batch["src_embeds"] = torch.zeros(
+                    (self.n_slots, 8, self.cfg.enc_d_model or self.cfg.d_model),
+                    dtype=torch.float32, device=self.device)
+            if self.cfg.vision_tokens:
+                batch["vision_embeds"] = torch.zeros(
+                    (self.n_slots, self.cfg.vision_tokens, self.cfg.d_model),
+                    dtype=torch.float32, device=self.device)
             with obs_trace.span("serve/prefill", tokens=int(maxlen)):
                 logits, self.cache = self._model_prefill(batch)
             self.next_tok = self._greedy(logits)[:, None]

@@ -41,7 +41,13 @@ def test_the_scan_covers_every_ported_module():
                  "repro_torch.examples.federated_logreg", "repro_torch.examples.prune_llm",
                  "repro_torch.cohort.population", "repro_torch.cohort.engine",
                  "repro_torch.cohort.accounting", "repro_torch.faults.transmit",
-                 "repro_torch.obs.metrics"):
+                 "repro_torch.obs.metrics", "repro_torch.models.mamba",
+                 "repro_torch.models.moe", "repro_torch.configs.mamba2_2_7b",
+                 "repro_torch.configs.seamless_m4t_large_v2",
+                 "repro_torch.configs.llama4_scout_17b_a16e",
+                 "repro_torch.configs.dbrx_132b",
+                 "repro_torch.configs.jamba_1_5_large_398b",
+                 "repro_torch.examples.serve_decode"):
         assert name in MODULES, name
 
 

@@ -1,11 +1,11 @@
-"""The port's dense configs (``repro_torch/configs``) against the JAX
-package's: every field and ``param_count`` equal, and the full-sequence
-forward of each ``reduced()`` config (f32) within atol 2e-5 of
+"""The port's configs (``repro_torch/configs``) against the JAX package's:
+all ten registered, every field, ``param_count``, ``active_param_count``,
+``padded_vocab`` and ``reduced()`` equal, and the full-sequence forward of
+each dense ``reduced()`` config (f32) within atol 2e-5 of
 ``repro.models.forward_train`` from the same parameters (the port's
 attention is one masked softmax where JAX tiles it; matmuls sum in another
-order).  The configs the port does not run yet (MoE, Mamba, encoder-decoder,
-vision) stay unregistered; ``tests/test_torch_model.py`` holds
-``require_supported`` raising for their layer kinds.
+order).  The MoE, Mamba, hybrid and encoder-decoder forwards are held in
+``tests/test_torch_arch.py``.
 """
 import dataclasses
 
@@ -17,11 +17,12 @@ from repro_torch import models as tm
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs import list_configs as t_list_configs
 from repro_torch.interop import params_from_jax
-from repro_torch.models.transformer import require_supported
 
 torch.set_num_threads(2)
 ATOL = 2e-5
 DENSE = ("chameleon-34b", "h2o-danube-1.8b", "nemotron-4-15b", "qwen1.5-110b", "qwen1.5-4b")
+OTHER = ("dbrx-132b", "jamba-1.5-large-398b", "llama4-scout-17b-a16e", "mamba2-2.7b",
+         "seamless-m4t-large-v2")
 
 
 @pytest.fixture(scope="module")
@@ -34,18 +35,23 @@ def jx():
 
 
 def test_the_port_registers_the_five_dense_configs():
-    assert t_list_configs() == sorted(DENSE)
+    """... and every other config of the JAX package."""
+    from repro.configs import list_configs
+    assert t_list_configs() == sorted(DENSE + OTHER) == list_configs()
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + OTHER)
 def test_fields_and_param_count_match_jax(jx, arch):
     get_config = jx[2]
     cfg, tcfg = get_config(arch), t_get_config(arch)
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(cfg)
     assert tcfg.param_count() == cfg.param_count()
     assert tcfg.active_param_count() == cfg.active_param_count()
+    assert tcfg.padded_vocab() == cfg.padded_vocab()
     assert dataclasses.asdict(tcfg.reduced()) == dataclasses.asdict(cfg.reduced())
-    require_supported(tcfg)                   # every dense config runs
+    r, tr = cfg.reduced(), tcfg.reduced()
+    assert (tr.param_count(), tr.active_param_count(), tr.padded_vocab()) == \
+        (r.param_count(), r.active_param_count(), r.padded_vocab())
 
 
 def test_qwen1_5_4b_at_full_width():
@@ -54,12 +60,14 @@ def test_qwen1_5_4b_at_full_width():
     assert abs(cfg.param_count() - 3.95e9) < 0.01e9
 
 
-@pytest.mark.parametrize("arch", ["dbrx-132b", "mamba2-2.7b", "seamless-m4t-large-v2",
-                                  "llama4-scout-17b-a16e", "jamba-1.5-large-398b"])
-def test_unported_architectures_are_not_registered(jx, arch):
-    jx[2](arch)                               # the JAX package has it
-    with pytest.raises(KeyError, match="unknown arch"):
-        t_get_config(arch)
+@pytest.mark.parametrize("arch,params,active", [
+    ("mamba2-2.7b", 2_702_393_856, 2_702_393_856),
+    ("seamless-m4t-large-v2", 2_034_783_232, 2_034_783_232),
+])
+def test_full_size_counts_of_the_models_served_whole(arch, params, active):
+    """The two configs the card runs at full size, by ``param_count``."""
+    cfg = t_get_config(arch)
+    assert (cfg.param_count(), cfg.active_param_count()) == (params, active)
 
 
 @pytest.mark.parametrize("arch", DENSE)

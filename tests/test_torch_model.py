@@ -14,7 +14,6 @@ import pytest
 import torch
 
 from repro_torch import models as tm
-from repro_torch.configs import MambaConfig, MoEConfig
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.interop import numpy_from_tensor, params_from_jax
 from repro_torch.utils.tree import tree_flatten_with_path
@@ -88,18 +87,6 @@ def test_init_layout_matches_jax_and_bf16_crosses_bitwise(jx, dtype):
         j = np.asarray(j)
         want = j.view(np.uint16) if dtype == "bfloat16" else j
         assert numpy_from_tensor(t).tobytes() == want.tobytes()
-
-
-@pytest.mark.parametrize("what,change", [
-    ("MoE", dict(moe=MoEConfig())),
-    ("Mamba", dict(mamba=MambaConfig(), layer_pattern=("mamba", "attn"))),
-    ("encoder-decoder", dict(enc_layers=2, cross_attn=True)),
-    ("vision", dict(vision_tokens=4)),
-])
-def test_unported_architectures_raise_naming_the_roadmap(what, change):
-    cfg = dataclasses.replace(t_get_config(ARCH).reduced(), **change)
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
-        tm.init_params(0, cfg, device="cpu")
 
 
 def test_launch_serve_greedy_on_cpu(capsys):
