@@ -132,6 +132,32 @@ the script exits nonzero without printing a result:
            card and on the CPU: logits within 1e-4 of their max, tokens
            equal.  Prefill / decode ms, the device's busy share of one
            decode step (torch.profiler) and the peaks are printed
+  archtrain  training of the other architectures at full width, each run
+           through training.loop.train with tracing on (bf16, random weights
+           from seed 0, seq 64, a global batch of 2, AdamW, the train phase's
+           SyntheticLMDataset feed): (a) mamba2-2.7b whole, dense, 2 steps;
+           (b) mamba2-2.7b at 32 of 64 layers, efbv + qsgd_kernel over 2
+           groups, 3 steps and a 4th under torch.profiler, where B1 must
+           launch G x chunks every step and B2 for the round report, and
+           step 0's first B1 chunk and the report's B2 probe must equal their
+           plain versions bit for bit; (c) seamless-m4t-large-v2 whole
+           (24 + 24 layers), dense, 2 steps, each batch with 64 source frames
+           made as launch.serve's side_inputs makes them; (d)
+           llama4-scout-17b-a16e cut to one full-width 16-expert MoE layer,
+           dense, 2 steps, the aux term printed.  Per run: losses and grad
+           norms (finite), the obs registry's series, the step split by the
+           step/* spans' CUDA events, the peak.  (e) The reduced f32 jamba,
+           dbrx and llama4, 3 dense steps on the card and on the CPU from the
+           same params and batches: losses within rtol 1e-4, every router
+           call's top-(K+1) margin > 1e-5.  (f) (b)'s profiled step: device
+           time by step/* range (profiler annotations on) and the busy share
+           of the unprofiled step.  (g) (b)'s trace through export_jsonl and
+           export_chrome_trace (every event "X" with its tid; load_jsonl
+           gives the spans back) and obs.report on it: exit 0, no ledger.
+           (h) A traced two-level hier round at 2^20 coordinates under
+           qsgd_kernel (encode B2, decode B3; each level in ambient(level=))
+           audited by obs.report against round_ledger's bytes: bytes_match
+           True and exit 0, exit 1 with one level's ledger bytes raised by 1
   timing   B1-B3 and B6 (beside B2) at the serve path's shape, B4/B5 at the
            codec path's d, and B7/B8 (both modes, three score modes) at one
            full-width w_in (2560 x 6912 bf16) on the card (CUDA events,
@@ -228,6 +254,23 @@ ARCH_RTOL = 1e-4                   # f32 logits card vs CPU, of the max (SSD sca
 # serve and arch: rows per slice where the plain B1-B3 are held to the first
 # put's and page-in's kernel calls (mamba2-2.7b's delta is 5,278,520 rows)
 PROBE_SLICE_ROWS = 1 << 20
+# archtrain phase: (label, config, layers kept (None: whole), SyncConfig
+# fields, steps, n_groups) at full width, seq and batch of the train phase;
+# the efbv run's last step is the profiled one.  Seamless's source frames per
+# sequence; the reduced MoE configs trained card vs CPU, their loss tolerance
+# and the router margin below which a top-k choice could flip; the audited
+# round's inter period
+ARCHTRAIN_RUNS = (
+    ("(a) mamba2 dense", "mamba2-2.7b", None, {"mode": "dense"}, 2, 1),
+    ("(b) mamba2 efbv + qsgd_kernel", "mamba2-2.7b", 32,
+     {"mode": "efbv", "compressor": "qsgd_kernel"}, 4, 2),
+    ("(c) seamless dense", "seamless-m4t-large-v2", None, {"mode": "dense"}, 2, 1),
+    ("(d) llama4 dense", "llama4-scout-17b-a16e", 1, {"mode": "dense"}, 2, 1),
+)
+ARCHTRAIN_SRC = 64
+ARCHTRAIN_REDUCED = ("jamba-1.5-large-398b", "dbrx-132b", "llama4-scout-17b-a16e")
+ARCHTRAIN_RTOL, ROUTER_MARGIN = 1e-4, 1e-5
+AUDIT_PERIOD = 4
 # train phase: (label, SyncConfig fields, steps, n_groups, n_pods)
 TRAIN_SEQ, TRAIN_BATCH = 64, 2
 TRAIN_RUNS = (("dense", {"mode": "dense"}, 2, 1, 1),
@@ -1024,31 +1067,37 @@ class StepSpans:
     """The train step's phases from its ``obs.trace`` spans (``step/grad``,
     ``step/sync``, ``step/apply``), timed on the card by the CUDA events the
     tracer records at each span's ends (by the host clock off the card).
-    Inside ``with``, ``take()`` after each step keeps that step's spans;
-    ``split()`` gives per-step ms by phase."""
+    Inside ``with`` (tracing on, the tracer emptied first; ``annotations``
+    also opens a torch.profiler range per span), ``take()`` after each step
+    keeps that step's spans; ``split()`` gives per-step ms by phase.  The
+    tracer keeps the whole run until the next ``with`` (or another run)
+    empties it."""
     PHASES = {"step/grad": "grad", "step/sync": "sync", "step/apply": "apply"}
 
-    def __init__(self, device):
+    def __init__(self, device, annotations=False):
         from repro_torch.obs import trace
         self.trace, self.on_card, self.steps = trace, device.type == "cuda", []
+        self.annotations, self._seen = annotations, 0
 
     def __enter__(self):
         self.was = self.trace.enabled()
         self.trace.get_tracer().reset()
-        self.trace.enable(device_events=self.on_card)
+        self.trace.enable(device_events=self.on_card, profiler_annotations=self.annotations)
         return self
 
     def __exit__(self, *exc):
+        self.trace.enable(profiler_annotations=False)
         self.trace.disable()
         if self.was:
             self.trace.enable()
-        self.trace.get_tracer().reset()
         return False
 
     def take(self):
         tracer = self.trace.get_tracer()
-        self.steps.append([sp for sp in tracer.spans() if sp.name in self.PHASES])
-        tracer.reset()
+        require(tracer.n_evicted == 0, f"the tracer evicted {tracer.n_evicted} spans")
+        spans = tracer.spans()
+        self.steps.append([sp for sp in spans[self._seen:] if sp.name in self.PHASES])
+        self._seen = len(spans)
 
     def split(self):
         import torch
@@ -1146,27 +1195,191 @@ def check_replicas(step, state, want_equal):
         require(not all(same), f"hier step {step}: replicas equal before any sync")
 
 
-def phase_train(cfg, device, ckpt):
-    """The training path at full width: three runs through
-    ``training.loop.train``; the efbv + qsgd_kernel run's params are saved
-    with ``save_checkpoint`` to ``ckpt`` (after its optimizer and sync state
-    are freed).  Returns (the launch counts of the path, {"path", "params"
-    (a host copy of the saved tensors), "save_s", "bytes"})."""
+def profile_by_phase(prof, ranges):
+    """Device ms of a torch.profiler run: the sum of the card's activity
+    (kernels, copies, sets; the device rows of the annotation ``ranges``
+    and of ``train#<step>`` left out), and that activity by ``step/*``
+    phase, each kernel in the phase whose host range holds the CPU event it
+    is linked to (its launch; the autograd thread's launches fall inside
+    the step/grad range, which the main thread holds while it waits).
+    -> (total ms, {phase: ms}, ms linked to any CPU event)."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    names = set(StepSpans.PHASES)
+    spans = [(e.time_range.start, e.time_range.end, StepSpans.PHASES[e.name])
+             for e in events if e.device_type == DeviceType.CPU and e.name in names]
+    total = sum(e.time_range.elapsed_us() for e in events
+                if e.device_type == DeviceType.CUDA and e.name not in ranges
+                and not e.name.startswith("train#"))
+    by, linked = {p: 0.0 for p in StepSpans.PHASES.values()}, 0.0
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        us = sum(k.duration for k in e.kernels)
+        linked += us
+        for t0, t1, phase in spans:
+            if t0 <= e.time_range.start <= t1:
+                by[phase] += us
+                break
+    return total / 1e3, {p: v / 1e3 for p, v in by.items()}, linked / 1e3
+
+
+def train_run(phase, label, cfg, tc, device, n_groups, n_pods, batches, on_step=None,
+              profile_last=False):
+    """One traced run of ``training.loop.train`` for ``tc.total_steps``
+    steps: finite losses and grad norms, the obs registry's series (each
+    step's fetched metrics; the round cost once for a compressed sync), the
+    step split by the ``step/*`` spans' CUDA events, the peak and the launch
+    counts.  Under efbv + ``qsgd_kernel``, B1 must launch G x chunks on every
+    step, B2 for the round report, and the run's first B1 call (a full chunk
+    of step 0's delta) and first B2 call (the report's probe) must equal
+    their plain versions bit for bit.  ``profile_last``: profiler
+    annotations on, and the last step runs under torch.profiler (its device
+    time by phase in ``run["profile"]``; it stays out of the median).  The
+    tracer still holds the run's spans on return.  Returns a dict (the
+    final ``state`` included)."""
     import math
     import torch
     from repro_torch import kernels
-    from repro_torch.comm.accounting import PROBE_CAP
-    from repro_torch.configs.base import SyncConfig, TrainConfig
     from repro_torch.core import distributed as dist
-    from repro_torch.data.synthetic import SyntheticLMDataset, lm_batch_iterator
     from repro_torch.kernels import bitpack, ops, quant8, ref
     from repro_torch.kernels.ops import tile_rows
     from repro_torch.obs import registry
     from repro_torch.training import loop
+    from repro_torch.utils.tree import tree_leaves
+
+    on_card = device.type == "cuda"
+    steps = tc.total_steps
+    spans = StepSpans(device, annotations=profile_last)
+    sync = (lambda: torch.cuda.synchronize(device)) if on_card else (lambda: None)
+    probe = b2 = prof = None
+    if tc.sync.mode == "efbv" and tc.sync.compressor == "qsgd_kernel":
+        probe = KernelProbe(quant8, "quant_dequant_2d", ref.quant_dequant_ref)
+        b2 = KernelProbe(bitpack, "quant_pack_2d", ref.quant_pack_ref)
+    if profile_last:
+        from torch.profiler import ProfilerActivity, profile
+        prof = profile(activities=[ProfilerActivity.CPU]
+                       + ([ProfilerActivity.CUDA] if on_card else []))
+    run = {"b1_seen": [], "d": None}    # B1 launches counted after each step
+
+    def feed():
+        for i, batch in enumerate(batches):
+            if prof is not None and i == steps - 1:
+                sync()
+                prof.start()
+            yield batch
+
+    def step_hook(step, state, metrics):
+        if prof is not None and step == steps - 1:
+            sync()
+            prof.stop()
+            run["profile"] = profile_by_phase(
+                prof, {sp.name for sp in spans.trace.get_tracer().spans()})
+        spans.take()
+        run["b1_seen"].append(kernels.launch_counts()["quant_dequant_2d"])
+        if run["d"] is None:
+            run["d"] = sum(int(p.numel()) for p in tree_leaves(state.params))
+        if on_step is not None:
+            on_step(step, state, metrics)
+
+    free_cached(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    if probe is not None:
+        dist.quant8, ops._bp = probe, b2
+    kernels.reset_launch_counts()
+    registry.reset()
+    try:
+        t0 = time.perf_counter()
+        with spans:
+            state, history = loop.train(
+                cfg, tc, feed(), n_groups=n_groups, n_pods=n_pods, steps=steps,
+                device=device, log=lambda m: log(phase, f"{label}: {m}"), on_step=step_hook)
+            sync()
+            run["s"] = time.perf_counter() - t0
+    finally:
+        if probe is not None:
+            dist.quant8, ops._bp = quant8, bitpack
+    counts = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    run.update(state=state, history=history, counts=counts, on_card=on_card,
+               peak_gib=torch.cuda.max_memory_allocated(device) / 2**30 if on_card else 0.0,
+               losses=[h["loss"] for h in history], gnorms=[h["grad_norm"] for h in history],
+               ces=[h["ce"] for h in history])
+    require(len(history) == steps and all(math.isfinite(v) for v in run["losses"] + run["gnorms"]),
+            f"{label}: non-finite loss or grad norm: {run['losses']} {run['gnorms']}")
+    require([v for _, v in registry.get("train/loss").series] == run["losses"]
+            and (tc.sync.mode == "dense") == (registry.get("comm/model/round_time_s") is None),
+            f"{label}: registry series {registry.names()}")
+    registry.reset()
+    run["split"] = split = spans.split()
+    timed_steps = split[:-1] if prof is not None else split
+    run["med"] = {k: statistics.median(r[k] for r in timed_steps) for k in split[0]}
+    if probe is None:
+        return run
+    chunks = -(-tile_rows(run["d"]) // dist.CHUNK_ROWS)
+    want = n_groups * chunks * steps
+    b1_steps = [n - m for n, m in zip(run["b1_seen"], [0] + run["b1_seen"][:-1])]
+    if on_card:
+        require(b1_steps == [n_groups * chunks] * steps,
+                f"{label}: B1 launches per step {b1_steps}, expected "
+                f"{n_groups * chunks} on every step")
+        require(counts["quant_dequant_2d"] == want,
+                f"{label}: B1 launched {counts['quant_dequant_2d']} times, expected "
+                f"{n_groups} groups x {chunks} chunks x {steps} steps = {want}")
+        require(counts["quant_pack_2d"] >= 1, f"{label}: B2 did not launch for the round report")
+        require(probe.checked is not None and probe.checked[0][0] == dist.CHUNK_ROWS,
+                f"{label}: step 0's first B1 call was not a full chunk: {probe.checked}")
+    require(probe.checked is not None and probe.checked[1],
+            f"{label}: B1 chunk of step 0's delta != plain: {probe.checked}")
+    from repro_torch.comm.accounting import PROBE_CAP
+    probe_rows = tile_rows(min(cfg.param_count(), PROBE_CAP))
+    require(b2.checked is not None and b2.checked[0] == (probe_rows, quant8.QBLOCK),
+            f"{label}: the round report's first B2 call was not its "
+            f"({probe_rows}, {quant8.QBLOCK}) probe: {b2.checked}")
+    require(b2.checked[1], f"{label}: B2 on the round report's probe != plain: {b2.checked}")
+    chunk_ms = probe.time_ms() if on_card else float("nan")   # not counted
+    kernels.reset_launch_counts()
+    rows = probe.checked[0][0]
+    run["b1_chunk"] = {"rows": rows, "ms": chunk_ms,
+                       "bound_ms": 1e3 * 12 * rows * 512 / HBM_BYTES_PER_S}
+    log(phase, f"{label}: B1 {counts['quant_dequant_2d']} launches (= {n_groups} groups x "
+               f"{chunks} chunks x {steps} steps; per step {b1_steps}), B2 "
+               f"{counts['quant_pack_2d']} (round report; its probe {b2.checked[0]} == "
+               f"plain bit for bit, max_abs_err {b2.checked[2]}); "
+               f"step 0's first B1 chunk {probe.checked[0]} == plain bit for bit "
+               f"(max_abs_err {probe.checked[2]}); B1 on that chunk {chunk_ms:.4f} ms "
+               f"(bound {run['b1_chunk']['bound_ms']:.4f} ms), x {chunks * n_groups} "
+               f"a step = {chunk_ms * chunks * n_groups:.2f} ms")
+    return run
+
+
+def run_summary(run):
+    """The run's losses, grad norms, median step split, peak and seconds."""
+    med, split = run["med"], run["split"]
+    return (f"losses {[round(v, 4) for v in run['losses']]}, grad norms "
+            f"{[round(v, 4) for v in run['gnorms']]}; median step {med['total']:.2f} ms = "
+            f"forward+backward {med['grad']:.2f} + sync {med['sync']:.2f} + clip+update "
+            f"{med['apply']:.2f} ({'CUDA events' if run['on_card'] else 'host clock'}); per "
+            f"step total {[round(r['total'], 2) for r in split]} ms, sync "
+            f"{[round(r['sync'], 2) for r in split]} ms; peak {run['peak_gib']:.2f} GiB; "
+            f"run {run['s']:.2f} s; kernels "
+            f"{json.dumps({k: v for k, v in run['counts'].items() if v})}")
+
+
+def phase_train(cfg, device, ckpt):
+    """The training path at full width: three runs through
+    ``training.loop.train`` (train_run); the efbv + qsgd_kernel run's params
+    are saved with ``save_checkpoint`` to ``ckpt`` (after its optimizer and
+    sync state are freed).  Returns (the launch counts of the path, {"path",
+    "params" (a host copy of the saved tensors), "save_s", "bytes"})."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import SyncConfig, TrainConfig
+    from repro_torch.core import distributed as dist
+    from repro_torch.data.synthetic import SyntheticLMDataset, lm_batch_iterator
     from repro_torch.training.checkpoint import save_checkpoint
     from repro_torch.utils.tree import tree_leaves, tree_map
 
-    on_card = device.type == "cuda"
     t_phase = time.perf_counter()
     ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, length=100_000, seed=0)
     path = {name: 0 for name in kernels.KERNELS}
@@ -1174,101 +1387,24 @@ def phase_train(cfg, device, ckpt):
     for label, sync_kw, steps, n_groups, n_pods in TRAIN_RUNS:
         tc = TrainConfig(model=cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, lr=3e-3,
                          warmup_steps=10, total_steps=steps, sync=SyncConfig(**sync_kw))
-        spans = StepSpans(device)
-        probe = b2 = None
-        if sync_kw.get("compressor") == "qsgd_kernel":
-            probe = KernelProbe(quant8, "quant_dequant_2d", ref.quant_dequant_ref)
-            b2 = KernelProbe(bitpack, "quant_pack_2d", ref.quant_pack_ref)
-        b1_seen = []                 # B1 launches counted after each step
-
-        def on_step(step, state, metrics, label=label):
-            spans.take()
-            b1_seen.append(kernels.launch_counts()["quant_dequant_2d"])
-            if label.startswith("hier"):
+        on_step = None
+        if label.startswith("hier"):
+            def on_step(step, state, metrics):
                 check_replicas(step, state, want_equal=step % 2 == 1)
-
-        gc.collect()
-        if on_card:
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats(device)
-        if probe is not None:
-            dist.quant8, ops._bp = probe, b2
-        kernels.reset_launch_counts()
-        registry.reset()
-        try:
-            t0 = time.perf_counter()
-            with spans:
-                state, history = loop.train(
-                    cfg, tc, lm_batch_iterator(ds, TRAIN_BATCH, TRAIN_SEQ, seed=1),
-                    n_groups=n_groups, n_pods=n_pods, steps=steps, device=device,
-                    log=lambda m, label=label: log("train", f"{label}: {m}"),
-                    on_step=on_step)
-                if on_card:
-                    torch.cuda.synchronize(device)
-            run_s = time.perf_counter() - t0
-        finally:
-            if probe is not None:
-                dist.quant8, ops._bp = quant8, bitpack
-        counts = kernels.launch_counts()
-        kernels.reset_launch_counts()
-        peak = torch.cuda.max_memory_allocated(device) if on_card else 0
-        for k, v in counts.items():
+        run = train_run("train", label, cfg, tc, device, n_groups, n_pods,
+                        lm_batch_iterator(ds, TRAIN_BATCH, TRAIN_SEQ, seed=1), on_step=on_step)
+        for k, v in run["counts"].items():
             path[k] += v
-        losses = [h["loss"] for h in history]
-        gnorms = [h["grad_norm"] for h in history]
-        require(len(history) == steps and all(math.isfinite(v) for v in losses + gnorms),
-                f"{label}: non-finite loss or grad norm: {losses} {gnorms}")
-        # traced steps feed the registry: each step's fetched metrics, and the
-        # round cost once for a compressed sync
-        require([v for _, v in registry.get("train/loss").series] == losses
-                and (sync_kw["mode"] == "dense") == (registry.get("comm/model/round_time_s") is None),
-                f"{label}: registry series {registry.names()}")
-        registry.reset()
-        split = spans.split()
-        med = {k: statistics.median(r[k] for r in split) for k in split[0]}
+        if "b1_chunk" in run:
+            summary["b1_chunk"] = run["b1_chunk"]
         cost = dist.round_comm(tc.sync, cfg.param_count(), device=device)   # not counted
         kernels.reset_launch_counts()
-        if probe is not None:
-            d = cfg.param_count()
-            chunks = -(-tile_rows(d) // dist.CHUNK_ROWS)
-            want = n_groups * chunks * steps
-            b1_steps = [n - m for n, m in zip(b1_seen, [0] + b1_seen[:-1])]
-            if on_card:
-                require(b1_steps == [n_groups * chunks] * steps,
-                        f"{label}: B1 launches per step {b1_steps}, expected "
-                        f"{n_groups * chunks} on every step")
-                require(counts["quant_dequant_2d"] == want,
-                        f"{label}: B1 launched {counts['quant_dequant_2d']} times, "
-                        f"expected {n_groups} groups x {chunks} chunks x {steps} steps = {want}")
-                require(counts["quant_pack_2d"] >= 1, f"{label}: B2 did not launch for the round report")
-                require(probe.checked is not None and probe.checked[0][0] == dist.CHUNK_ROWS,
-                        f"{label}: step 0's first B1 call was not a full chunk: {probe.checked}")
-            require(probe.checked is not None and probe.checked[1],
-                    f"{label}: B1 chunk of step 0's delta != plain: {probe.checked}")
-            probe_rows = tile_rows(min(d, PROBE_CAP))
-            require(b2.checked is not None and b2.checked[0] == (probe_rows, quant8.QBLOCK),
-                    f"{label}: the round report's first B2 call was not its "
-                    f"({probe_rows}, {quant8.QBLOCK}) probe: {b2.checked}")
-            require(b2.checked[1], f"{label}: B2 on the round report's probe != plain: {b2.checked}")
-            chunk_ms = probe.time_ms() if on_card else float("nan")   # not counted
-            kernels.reset_launch_counts()
-            rows = probe.checked[0][0]
-            summary["b1_chunk"] = {"rows": rows, "ms": chunk_ms,
-                                   "bound_ms": 1e3 * 12 * rows * 512 / HBM_BYTES_PER_S}
-            log("train", f"{label}: B1 {counts['quant_dequant_2d']} launches (= {n_groups} groups x "
-                         f"{chunks} chunks x {steps} steps; per step {b1_steps}), B2 "
-                         f"{counts['quant_pack_2d']} (round report; its probe {b2.checked[0]} == "
-                         f"plain bit for bit, max_abs_err {b2.checked[2]}); "
-                         f"step 0's first B1 chunk {probe.checked[0]} == plain bit for bit "
-                         f"(max_abs_err {probe.checked[2]}); B1 on that chunk {chunk_ms:.4f} ms "
-                         f"(bound {summary['b1_chunk']['bound_ms']:.4f} ms), x {chunks * n_groups} "
-                         f"a step = {chunk_ms * chunks * n_groups:.2f} ms")
-            del probe, b2
+        state = run.pop("state")
         if label.startswith("efbv"):
             # the chain: these trained params are what the prune phase prunes
             trained = state.params
             del state
-            gc.collect()
+            free_cached(device)
             _, save_s = timed(device, lambda: save_checkpoint(ckpt, trained, step=steps))
             nbytes = os.path.getsize(ckpt + ".npz")
             saved = {"path": ckpt, "save_s": save_s, "bytes": nbytes,
@@ -1282,21 +1418,12 @@ def phase_train(cfg, device, ckpt):
         if label.startswith("hier"):
             log("train", f"{label}: replicas differ after step 0, bitwise equal to each other "
                          f"and to the bf16 anchor after steps 1 and 3")
-        summary[label] = {"step_ms": med, "peak_gib": peak / 2**30,
+        summary[label] = {"step_ms": run["med"], "peak_gib": run["peak_gib"],
                           "bytes_per_round": cost.total_bytes}
-        log("train", f"{label}: losses {[round(v, 4) for v in losses]}, grad norms "
-                     f"{[round(v, 4) for v in gnorms]}; median step {med['total']:.2f} ms = "
-                     f"forward+backward {med['grad']:.2f} + sync {med['sync']:.2f} + clip+update "
-                     f"{med['apply']:.2f} ({'CUDA events' if on_card else 'host clock'}); per "
-                     f"step total {[round(r['total'], 2) for r in split]} ms, sync "
-                     f"{[round(r['sync'], 2) for r in split]} ms; peak {peak / 2**30:.2f} GiB; "
-                     f"RoundCost {cost.total_bytes:.0f} B/round (inter {cost.inter_bytes:.0f}, "
-                     f"intra {cost.intra_bytes:.0f}); run {run_s:.2f} s; kernels "
-                     f"{json.dumps({k: v for k, v in counts.items() if v})}")
-        del state, history
-    gc.collect()
-    if on_card:
-        torch.cuda.empty_cache()
+        log("train", f"{label}: {run_summary(run)}; RoundCost {cost.total_bytes:.0f} B/round "
+                     f"(inter {cost.inter_bytes:.0f}, intra {cost.intra_bytes:.0f})")
+        del state, run
+    free_cached(device)
     log("train", f"phase {time.perf_counter() - t_phase:.2f} s; kernels {json.dumps(path)}; "
                  f"summary {json.dumps(summary)}")
     return path, saved
@@ -2061,6 +2188,344 @@ def phase_arch(device):
 
 
 # ---------------------------------------------------------------------------
+def archtrain_config(arch, layers):
+    """``arch`` at full width, its depth cut to ``layers`` (None: whole); a
+    cut below one period of the layer pattern keeps the period's first
+    layers."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if layers is None:
+        return cfg
+    if cfg.layer_pattern and layers < len(cfg.layer_pattern):
+        return replace(cfg, num_layers=layers, layer_pattern=cfg.layer_pattern[:layers])
+    return replace(cfg, num_layers=layers)
+
+
+def with_frames(cfg, batches, device):
+    """Each batch with the encoder's source frames, as launch.serve's
+    side_inputs makes them: 0.02 * N(0, 1), (B, ARCHTRAIN_SRC, De), from a
+    generator seeded with the batch's index."""
+    from repro_torch.launch.serve import side_inputs
+    for i, batch in enumerate(batches):
+        frames = side_inputs(cfg, batch["tokens"].shape[0], i, device, src_len=ARCHTRAIN_SRC)
+        yield {**batch, "src_embeds": frames["src_embeds"]}
+
+
+def sync_meta(sync):
+    """A SyncConfig as the trace's meta header records it (obs.report's
+    ``sync_from_meta`` rebuilds it)."""
+    meta = {k: getattr(sync, k) for k in ("mode", "compressor", "compress_ratio",
+                                          "quant_bits", "sync_period", "topology")}
+    if sync.levels:
+        meta["levels"] = [{"name": lc.name, "period": lc.period, "compressor": lc.compressor,
+                           "compress_ratio": lc.compress_ratio, "quant_bits": lc.quant_bits}
+                          for lc in sync.levels]
+    return meta
+
+
+def run_report(phase, argv):
+    """``obs.report.main(argv)`` with its table on the log -> (exit status,
+    the result dict it wrote with ``--json``)."""
+    import contextlib
+    import io
+    from repro_torch.obs import report
+    out_json = argv[0] + ".report.json"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = report.main(list(argv) + ["--json", out_json])
+    for line in buf.getvalue().splitlines():
+        log(phase, f"  | {line}")
+    with open(out_json) as f:
+        return rc, json.load(f)
+
+
+def traced_round(out_dir, n_params, compressor, device, sync_period=AUDIT_PERIOD):
+    """One full root period of a two-level hier schedule (dense ``intra``
+    every round, ``compressor`` ``inter`` every ``sync_period``) run with
+    the port's codecs under tracing, as the JAX package's
+    benchmarks/bench_comm.py traced_round does: each level inside
+    ``ambient(level=...)``, pack / encode / wire / decode / adopt spans, and
+    every encode of the probe payload that ``round_ledger`` sizes its
+    records from (normal draws and the compressor's from one generator
+    seeded 0 on ``device``), so the encode spans' bytes by level equal the
+    ledger's.  Writes the trace JSONL (exported before the accounting calls,
+    whose own probe encodes would add untagged spans) and a metrics JSON
+    carrying ``round_ledger(...).bytes_by_tag()``; returns their paths."""
+    import torch
+    from repro_torch.comm import codecs, round_cost, round_ledger
+    from repro_torch.comm.accounting import PROBE_CAP, _hier_levels
+    from repro_torch.configs.base import SyncConfig
+    from repro_torch.core.distributed import make_sync_compressor
+    from repro_torch.obs import registry, trace
+    from repro_torch.utils.device import make_generator
+
+    sync = SyncConfig(mode="hier", compressor=compressor, quant_bits=8, sync_period=sync_period)
+    require(n_params <= PROBE_CAP, "the exact ledger match needs n_params <= the probe")
+    levels = _hier_levels(sync)
+    n_rounds = max(1, levels[-1].period)
+    was = trace.enabled()
+    trace.enable()
+    trace.get_tracer().reset()
+    registry.reset()
+    comps = {lc.name: make_sync_compressor(lc.compressor, lc.compress_ratio, lc.quant_bits)
+             for lc in levels}
+    for t in range(n_rounds):
+        with trace.span("round/step", round=t):
+            for lc in levels:
+                period = max(1, lc.period)
+                if t % period != period - 1:
+                    continue                 # this level does not sync at round t
+                gen = make_generator(0, device)
+                x = torch.randn(n_params, generator=gen, device=device)
+                with trace.ambient(level=lc.name):
+                    with trace.span("sync/pack", level=lc.name):
+                        host = x.cpu()        # host staging of the payload
+                    p = codecs.encode(comps[lc.name], x, generator=gen)   # codec/encode
+                    with trace.span("comm/allreduce", level=lc.name, nbytes=p.nbytes):
+                        wire = {k: v.copy() for k, v in p.planes.items()}   # the wire hop
+                    y = codecs.decode(p, device)                         # codec/decode
+                    with trace.span("sync/adopt", level=lc.name):
+                        host = host + y.cpu()                            # model adoption
+    del wire, host
+    trace.set_meta(label="chip_smoke traced hier round", n_params=n_params,
+                   n_rounds=n_rounds, sync=sync_meta(sync))
+    trace_path = trace.export_jsonl(os.path.join(out_dir, "TRACE_round.jsonl"))
+    trace.disable()
+    trace.get_tracer().reset()
+    if was:
+        trace.enable()
+    led = round_ledger(sync, n_params, n_rounds=n_rounds, device=device)
+    registry.observe_round_cost(0, round_cost(sync, n_params, device=device))
+    registry.ingest_ledger(led)
+    metrics_path = registry.export_json(
+        os.path.join(out_dir, "METRICS_round.json"),
+        extra={"ledger_bytes_by_tag": {k: float(v) for k, v in led.bytes_by_tag().items()},
+               "n_params": n_params, "n_rounds": n_rounds})
+    registry.reset()
+    return trace_path, metrics_path
+
+
+def export_trace(phase, label, run, out_dir, tc):
+    """(g) The run's trace through both exporters: every Chrome event an
+    "X" event on a span's thread, and load_jsonl giving back the spans.
+    Returns the JSONL's path."""
+    from repro_torch.obs import trace
+    tracer = trace.get_tracer()
+    trace.set_meta(label=f"chip_smoke archtrain {label}", n_params=run["d"],
+                   n_rounds=tc.total_steps, sync=sync_meta(tc.sync))
+    spans = tracer.spans()
+    path = trace.export_jsonl(os.path.join(out_dir, "TRACE_train.jsonl"))
+    chrome = trace.export_chrome_trace(os.path.join(out_dir, "TRACE_train.json"))
+    with open(chrome) as f:
+        events = json.load(f)["traceEvents"]
+    tids = {sp.tid for sp in spans}
+    require(len(events) == len(spans) == tracer.n_recorded and all(
+        ev["ph"] == "X" and ev["tid"] in tids and ev["name"] == sp.name
+        for ev, sp in zip(events, spans)),
+        f"{label}: Chrome trace: {len(events)} events for {len(spans)} spans")
+    meta, back = trace.load_jsonl(path)
+    require([s.to_json() for s in back] == [s.to_json() for s in spans]
+            and meta["n_evicted"] == 0 and meta["sync"]["mode"] == tc.sync.mode,
+            f"{label}: load_jsonl did not give back the exported spans")
+    names = sorted({sp.name for sp in spans})
+    log(phase, f"{label}: trace exported, {len(spans)} spans ({os.path.getsize(path)} B JSONL, "
+               f"{os.path.getsize(chrome)} B Chrome JSON, all X events with their tid), "
+               f"load_jsonl == the spans; names {names}")
+    return path
+
+
+def audit_round(phase, device, out_dir):
+    """(h) The byte audit: traced_round at PROBE_CAP coordinates under
+    qsgd_kernel (encode B2, decode B3; the inter payload's encode and
+    decode held bit for bit to their plain versions on the same inputs),
+    read by obs.report with the ledger: bytes_match True and exit 0; with
+    one level's ledger bytes raised by 1, exit 1.  Returns the launch
+    counts (the round's and the report's)."""
+    from repro_torch import kernels
+    from repro_torch.comm.accounting import PROBE_CAP
+    from repro_torch.kernels import bitpack, ops, ref
+    from repro_torch.kernels.bitpack import QBLOCK
+    b3 = KernelProbe(bitpack, "unpack_dequant_2d", ref.unpack_dequant_ref)
+    b2 = KernelProbe(b3, "quant_pack_2d", ref.quant_pack_ref)
+    kernels.reset_launch_counts()
+    ops._bp = b2
+    try:
+        trace_path, metrics_path = traced_round(out_dir, PROBE_CAP, "qsgd_kernel", device)
+    finally:
+        ops._bp = bitpack
+    counts = kernels.launch_counts()
+    on_card = device.type == "cuda"
+    require(not on_card or counts["quant_pack_2d"] > 0 and counts["unpack_dequant_2d"] > 0,
+            f"the audited round launched B2 {counts['quant_pack_2d']}, B3 "
+            f"{counts['unpack_dequant_2d']} times")
+    shape = (PROBE_CAP // QBLOCK, QBLOCK)
+    for name, probe in (("B2", b2), ("B3", b3)):
+        require(probe.checked is not None and probe.checked[0] == shape and probe.checked[1],
+                f"(h) the inter payload's {name} != its plain version: {probe.checked}")
+    log(phase, f"(h) traced hier round ({PROBE_CAP} coordinates, qsgd_kernel inter every "
+               f"{AUDIT_PERIOD}, one root period): B2 {counts['quant_pack_2d']} launches (the "
+               f"inter encode, then the ledger's and the round cost's probes), B3 "
+               f"{counts['unpack_dequant_2d']} (the inter decode); the inter encode's B2 and "
+               f"decode's B3 at {shape} == their plain versions bit for bit, max_abs_err "
+               f"{b2.checked[2]} / {b3.checked[2]}; the report:")
+    argv = [trace_path, "--metrics", metrics_path] + ([] if on_card else ["--device", str(device)])
+    rc, res = run_report(phase, argv)
+    require(rc == 0 and res["bytes_match"] is True and res["trace_bytes"] == res["ledger_bytes"],
+            f"(h) report exit {rc}, bytes_match {res['bytes_match']}: trace "
+            f"{res['trace_bytes']} ledger {res['ledger_bytes']}")
+    log(phase, f"(h) bytes by level {res['trace_bytes']} == the ledger's, exit 0; with the "
+               f"inter ledger bytes raised by 1:")
+    with open(metrics_path) as f:
+        doc = json.load(f)
+    doc["ledger_bytes_by_tag"]["inter"] += 1                  # corrupt one level
+    with open(metrics_path, "w") as f:
+        json.dump(doc, f)
+    bad, res = run_report(phase, argv)
+    require(bad == 1 and res["bytes_match"] is False,
+            f"(h) the report exited {bad} on a corrupted ledger, expected 1")
+    log(phase, f"(h) exit {bad} on the corrupted ledger")
+    counts = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    return counts
+
+
+def archtrain_reduced(device):
+    """(e) The reduced f32 MoE configs, 3 dense steps on the card and on the
+    CPU from the same params and batches: losses within ARCHTRAIN_RTOL and
+    every router call's top-(K+1) probabilities apart by > ROUTER_MARGIN
+    (no top-k choice can flip between the two).  Returns {config: largest
+    relative loss difference}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SyncConfig, TrainConfig
+    from repro_torch.data.synthetic import SyntheticLMDataset, lm_batch_iterator
+    from repro_torch.models import init_params, moe as moe_lib
+    from repro_torch.training.steps import init_train_state, make_train_step
+    from repro_torch.utils.tree import tree_map
+
+    cpu, errs, margins = torch.device("cpu"), {}, []
+    route = moe_lib.route
+
+    def recording(router, xt, num_experts, top_k, *a, **kw):
+        r = route(router, xt, num_experts, top_k, *a, **kw)
+        p = r.probs.detach().double().sort(dim=-1, descending=True).values[:, :top_k + 1]
+        margins.append(float((p[:, :-1] - p[:, 1:]).min()))
+        return r
+
+    moe_lib.route = recording
+    try:
+        for name in ARCHTRAIN_REDUCED:
+            cfg = get_config(name).reduced()
+            tc = TrainConfig(model=cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, lr=3e-3,
+                             warmup_steps=10, total_steps=3, sync=SyncConfig(mode="dense"))
+            it = lm_batch_iterator(SyntheticLMDataset(cfg.vocab_size, 20_000, seed=0),
+                                   TRAIN_BATCH, TRAIN_SEQ, seed=1)
+            batches = []
+            for _ in range(3):
+                tokens = torch.as_tensor(next(it)["tokens"]).long()
+                batches.append({"tokens": tokens[:, :-1], "targets": tokens[:, 1:]})
+            p_cpu = init_params(6, cfg, device="cpu")   # margins of 2.9e-5 and more on the CPU
+            losses = []
+            for dev in (device, cpu):
+                params = tree_map(lambda a: a.to(dev, copy=True), p_cpu)
+                state = init_train_state(torch.Generator(dev).manual_seed(0), params, tc, 1, 1)
+                step = make_train_step(cfg, tc, 1, 1)
+                run = []
+                for b in batches:
+                    state, m = step(state, {k: v.to(dev) for k, v in b.items()})
+                    run.append(float(m["loss"]))
+                losses.append(run)
+                del state, params
+            errs[name] = close(losses[0], losses[1], ARCHTRAIN_RTOL,
+                               f"reduced {name}: card vs CPU losses")
+    finally:
+        moe_lib.route = route
+    require(margins and min(margins) > ROUTER_MARGIN,
+            f"reduced MoE training: a router's top-(K+1) margin {min(margins or [0])} <= "
+            f"{ROUTER_MARGIN}")
+    log("archtrain", "(e) reduced f32, 3 dense steps, card vs CPU from the same params and "
+                     "batches, max relative loss difference: "
+                     + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                     + f" (<= {ARCHTRAIN_RTOL}); {len(margins)} router calls, smallest "
+                       f"top-(K+1) margin {min(margins):.3g} (> {ROUTER_MARGIN})")
+    return errs
+
+
+def phase_archtrain(device):
+    """Training of the new architectures at full width, traced
+    (ARCHTRAIN_RUNS: (a) mamba2-2.7b whole, dense; (b) mamba2-2.7b cut,
+    efbv + qsgd_kernel, its last step profiled (f) and its trace exported
+    and read back by obs.report (g); (c) seamless whole with source frames;
+    (d) llama4 cut to one MoE layer); then (e) the reduced MoE configs card
+    vs CPU and (h) the byte audit of a traced hier round.  Returns the
+    launch counts of the path."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import SyncConfig, TrainConfig
+    from repro_torch.data.synthetic import SyntheticLMDataset, lm_batch_iterator
+
+    t_phase = time.perf_counter()
+    path = {name: 0 for name in kernels.KERNELS}
+    out_dir = tempfile.mkdtemp()
+    try:
+        for label, arch, layers, sync_kw, steps, n_groups in ARCHTRAIN_RUNS:
+            cfg = archtrain_config(arch, layers)
+            tc = TrainConfig(model=cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, lr=3e-3,
+                             warmup_steps=10, total_steps=steps, sync=SyncConfig(**sync_kw))
+            batches = lm_batch_iterator(SyntheticLMDataset(cfg.vocab_size, 100_000, seed=0),
+                                        TRAIN_BATCH, TRAIN_SEQ, seed=1)
+            if cfg.enc_layers:
+                batches = with_frames(cfg, batches, device)
+            profiled = sync_kw["mode"] != "dense"
+            run = train_run("archtrain", label, cfg, tc, device, n_groups, 1, batches,
+                            profile_last=profiled)
+            trace_path = export_trace("archtrain", label, run, out_dir, tc) if profiled else None
+            del run["state"]
+            free_cached(device)
+            for k, v in run["counts"].items():
+                path[k] += v
+            aux = ""
+            if cfg.moe:
+                aux = (f"; aux term (loss - ce, weight {cfg.moe.aux_loss_weight}) "
+                       f"{[float(f'{a - c:.4g}') for a, c in zip(run['losses'], run['ces'])]}")
+            whole = archtrain_config(arch, None).num_layers
+            frames = f", source frames {ARCHTRAIN_SRC}" if cfg.enc_layers else ""
+            log("archtrain", f"{label}: {cfg.num_layers} of {whole} layers at full width "
+                             f"({run['d']} params, {cfg.dtype}{frames}): {run_summary(run)}{aux}")
+            if not profiled:
+                continue
+            busy, by_phase, linked = run["profile"]
+            last = run["split"][-1]["total"]
+            clock = "CUDA events" if run["on_card"] else "host clock"
+            log("archtrain", f"(f) {label}: the last step under torch.profiler ({last:.2f} ms "
+                             f"by {clock}): device activity {busy:.2f} ms, by phase "
+                             + ", ".join(f"{k} {v:.2f}" for k, v in by_phase.items())
+                             + f" ms ({linked:.2f} ms linked to a launch); the unprofiled "
+                               f"median step {run['med']['total']:.2f} ms: "
+                             + busy_note(busy, run["med"]["total"]))
+            log("archtrain", f"(g) {label}: obs.report on the exported trace:")
+            argv = [trace_path] + ([] if device.type == "cuda" else ["--device", str(device)])
+            kernels.reset_launch_counts()
+            rc, res = run_report("archtrain", argv)
+            for k, v in kernels.launch_counts().items():
+                path[k] += v
+            kernels.reset_launch_counts()
+            require(rc == 0 and res["bytes_match"] is None,
+                    f"(g) report exit {rc}, bytes_match {res['bytes_match']}")
+            del run
+        errs = archtrain_reduced(device)
+        for k, v in audit_round("archtrain", device, out_dir).items():
+            path[k] += v
+    finally:
+        shutil.rmtree(out_dir)
+    free_cached(device)
+    log("archtrain", f"phase {time.perf_counter() - t_phase:.2f} s; kernels "
+                     f"{json.dumps({k: v for k, v in path.items() if v})}; reduced "
+                     f"{json.dumps(errs)}")
+    return path
+
+
+# ---------------------------------------------------------------------------
 def cuda_ms(fn, reps=5, warmup=1):
     """Median of ``reps`` CUDA-event timings of ``fn()``, after ``warmup``."""
     import torch
@@ -2383,15 +2848,19 @@ def main():
     arch_counts = phase_arch(device)
     for kid, name, _, _ in KERNEL_INFO:
         require(arch_counts[name] > 0, f"{kid} {name} was not launched on the arch path")
+    archtrain_counts = phase_archtrain(device)
+    for kid, name, _, _ in KERNEL_INFO:
+        require(archtrain_counts[name] > 0, f"{kid} {name} was not launched on the archtrain path")
     # each kernel's launches on the paths that exercise it (B1: serve + train +
-    # arch; B2: serve + train + cohort + arch; B3: serve + cohort + arch)
+    # arch + archtrain; B2: serve + train + cohort + arch + archtrain; B3:
+    # serve + cohort + arch + archtrain)
     launches = {**counts, **{name: codec_counts[name] for _, name, _, _, _ in CODEC_INFO}}
     for name in ("quant_dequant_2d", "quant_pack_2d"):
         launches[name] += train_counts[name]
     for name in ("quant_pack_2d", "unpack_dequant_2d"):
         launches[name] += cohort_counts[name]
     for _, name, _, _ in KERNEL_INFO:
-        launches[name] += arch_counts[name]
+        launches[name] += arch_counts[name] + archtrain_counts[name]
     kernels = phase_timing(rows, device, launches)
     kernels += phase_mask_timing(d, device, launches)
     kernels += phase_prune_timing(layer, prune_counts, selecting, prune_errs, wide_counts)

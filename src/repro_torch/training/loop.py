@@ -10,11 +10,14 @@ never with a per-step ``.item()`` — unless tracing is on
 are fetched (``round/blocking_fetch``) and the process-wide
 ``repro_torch.obs.registry`` receives the round cost
 (``observe_round_cost``), each step's fault plan (``observe_fault_plan``)
-and each step's fetched metrics (``observe_train_step``).
+and each step's fetched metrics (``observe_train_step``), and the
+``train`` logger (``utils.logging``) emits the reference's structured
+``round step=... loss=...`` line.  Each round is a ``round/step`` span and,
+with profiler annotations on, a ``train#<step>`` ``torch.profiler`` range.
+Wall times come from ``obs.trace.wall_s``, the trace's clock.
 """
 from __future__ import annotations
 
-import time
 from typing import Callable, Iterator, Optional
 
 import torch
@@ -26,6 +29,9 @@ from repro_torch.obs import trace as obs_trace
 from repro_torch.training.checkpoint import save_checkpoint
 from repro_torch.training.steps import init_train_state, make_train_step
 from repro_torch.utils.device import fold_seed, make_generator, resolve_device
+from repro_torch.utils.logging import get_logger, log_kv
+
+_log = get_logger("train")
 
 
 def _fault_model(tc: TrainConfig, n_groups: int, n_pods: int):
@@ -118,10 +124,10 @@ def train(cfg: ModelConfig, tc: TrainConfig, batches: Iterator[dict],
             fault_nbytes = [lv.bytes_per_round * lv.period for lv in cost.levels]
 
     history = []
-    t0 = time.perf_counter()
+    t0 = obs_trace.wall_s()
     for step in range(steps):
         tracing = obs_trace.enabled()
-        with obs_trace.span("round/step", round=step):
+        with obs_trace.span("round/step", round=step), obs_trace.step_annotation(step):
             model_batch = _to_model_batch(next(batches), device)
             masks = None
             if fault_model is not None:
@@ -142,9 +148,10 @@ def train(cfg: ModelConfig, tc: TrainConfig, batches: Iterator[dict],
                 fetched = {k: float(v) for k, v in metrics.items()}
             if tracing:
                 registry.observe_train_step(step, fetched)
+                log_kv(_log, "round", step=step, **fetched)
             if log_step:
                 log(f"step {step:4d} loss {fetched['loss']:.4f} grad_norm "
-                    f"{fetched['grad_norm']:.3f} ({time.perf_counter() - t0:.2f}s)")
+                    f"{fetched['grad_norm']:.3f} ({obs_trace.wall_s() - t0:.2f}s)")
     # one transfer drains every step's still-on-device metrics
     keys = list(history[0]) if history else []
     table = torch.stack([torch.stack([h[k].float() for k in keys]) for h in history]).tolist() \

@@ -47,7 +47,8 @@ def test_the_scan_covers_every_ported_module():
                  "repro_torch.configs.llama4_scout_17b_a16e",
                  "repro_torch.configs.dbrx_132b",
                  "repro_torch.configs.jamba_1_5_large_398b",
-                 "repro_torch.examples.serve_decode"):
+                 "repro_torch.examples.serve_decode", "repro_torch.obs.report",
+                 "repro_torch.utils.logging"):
         assert name in MODULES, name
 
 
