@@ -14,6 +14,14 @@ the script exits nonzero without printing a result:
            2^26-element slice of the main path's shape; B4/B5 (pack_bits /
            unpack_bits) and B6 (stream_quantize_pack, with zero rows) at
            ragged d in {1, 31, 33, 4097, 5*512+37}
+  lint     python -m repro_torch.lint --device cuda in this process over
+           src/repro_torch and this script: exit 0 and no finding.  Its
+           contracts run on the card (RC001's qsgd_kernel carriers, RC002's
+           probe: B1, B2 and B3 must launch) and RC003 reads every kernel
+           instance's launch resources from the built library: one line
+           each with its registers, static and dynamic shared memory, local
+           bytes and blocks per SM (clusters per device for the selecting
+           B8, staged at d_in 2560 and unstaged at 8192)
   serve    the main path at the full width of h2o-danube-1.8b (bf16, random
            weights from a seed): a DeltaStore with the qsgd_kernel
            compressor stores two users (each put runs B2 and B1 and passes
@@ -385,6 +393,65 @@ def phase_kernels(device):
         u = torch.rand((ops.tile_rows(d), 512), generator=g, device=device)
         compare_stream_kernel(*ops._quant_tiles(x, u)[:2])
     log("kernels", f"B4/B5 and B6 == plain bit for bit (B6 == B2): ragged d in {RAGGED_D}")
+
+
+def phase_lint(device):
+    """``python -m repro_torch.lint --device cuda`` in this process over its
+    default paths (src/repro_torch and this script): exit 0, no finding.
+    Its contracts run on the card: RC001's qsgd_kernel carriers (B1), RC002's
+    qsgd_kernel probe (B1, B2, B3) and RC003's card half, each kernel's
+    launch resources from the built library.  B1-B3 must launch, and every
+    launch of them on the card is held bit for bit against its plain
+    version on the same inputs (probes in ``kernels.ops``); one line per
+    kernel instance gives its resources.  Returns the resource rows."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import bitpack, ops, quant8, ref
+    from repro_torch.lint import contracts
+    from repro_torch.lint.__main__ import main as lint_main
+    b3 = KernelProbe(bitpack, "unpack_dequant_2d", ref.unpack_dequant_ref, every=True)
+    probes = {"B1": KernelProbe(quant8, "quant_dequant_2d", ref.quant_dequant_ref, every=True),
+              "B2": KernelProbe(b3, "quant_pack_2d", ref.quant_pack_ref, every=True),
+              "B3": b3}
+    kernels.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    ops._q8, ops._bp = probes["B1"], probes["B2"]
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = lint_main(["--device", "cuda", "--format", "json"])
+    finally:
+        ops._q8, ops._bp = quant8, bitpack
+    torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    doc = json.loads(buf.getvalue())
+    counts = kernels.launch_counts()
+    require(rc == 0 and doc["findings"] == [] and doc["baselined"] == 0,
+            f"lint: exit {rc}, findings {doc['findings']}")
+    for kid, name, _, _ in KERNEL_INFO:
+        require(counts[name] > 0, f"{kid} {name} was not launched by the lint's contracts")
+        held = [c for c in probes[kid].checks if c[1] == "cuda"]
+        require(len(held) == counts[name],
+                f"lint: {kid} launched {counts[name]} times, {len(held)} held to plain")
+        require(all(c[2] for c in held), f"lint: {kid} != plain on {[c for c in held if not c[2]]}")
+        log("lint", f"{kid} {name}: {len(held)} launches == plain bit for bit, shapes "
+                    f"{sorted({c[0] for c in held})}, max_abs_err "
+                    f"{max(c[3] for c in held)}")
+    rows = contracts.kernel_resources(device)
+    for r in rows:
+        m = r["launch"]
+        at = f" d_in {m.d_in} ({'staged' if r['staged'] else 'unstaged'})" if m.d_in else ""
+        per = "clusters per device" if r["cluster"] > 1 else "blocks per SM"
+        log("lint", f"{m.kid} {r['name']}{at}: {r['threads']} threads x cluster "
+                    f"{r['cluster']}, {r['regs']} registers, {r['static_smem']} B static "
+                    f"+ {r['dyn_smem']} B dynamic shared, {r['local']} B local, "
+                    f"{r['occupancy']} {per}")
+    log("lint", f"exit {rc}: 0 findings in {doc['checked_files']} files, "
+                f"{seconds:.2f} s; launches {counts}; opt-in shared memory "
+                f"{rows[0]['optin']} B")
+    return rows
 
 
 def compare_mask_kernels(mask):
@@ -1122,12 +1189,16 @@ class KernelProbe:
     B1 and B3 and the first page-in's B3) is held bit for bit against its
     plain version on the same inputs.  The kernel call itself is the main path's, counted
     by the wrapper as always; the plain version launches nothing.  Probes
-    chain: a probe of another probe stands in for both functions."""
+    chain: a probe of another probe stands in for both functions.  With
+    ``every`` (the lint phase's probes) every call is held, and ``checks``
+    lists each call's (input shape, device type, equal, max_abs_err)."""
 
-    def __init__(self, module, fn, plain, slice_rows=None):
+    def __init__(self, module, fn, plain, slice_rows=None, every=False):
         self._mod, self._fn, self._plain = module, fn, plain
         self._slice_rows = slice_rows
+        self._every = every
         self.checked = None
+        self.checks = []
 
     def __getattr__(self, name):
         if name == self._fn:
@@ -1136,7 +1207,7 @@ class KernelProbe:
 
     def _call(self, *args, **kw):
         kernel = getattr(self._mod, self._fn)
-        if self.checked is not None:
+        if self.checked is not None and not self._every:
             return kernel(*args, **kw)
         if self._slice_rows:
             return self._call_sliced(kernel, args, kw)
@@ -1144,9 +1215,13 @@ class KernelProbe:
         out = kernel(*args, **kw)
         want = self._plain(*ins, **kw)
         got, want = (out, want) if isinstance(out, tuple) else ((out,), (want,))
-        self.checked = (tuple(args[0].shape), all(bits_equal(g, w) for g, w in zip(got, want)),
-                        max(max_abs_err(g, w) for g, w in zip(got, want)))
-        self.inputs = (ins, kw)                         # for timing after the run
+        check = (tuple(args[0].shape), args[0].device.type,
+                 all(bits_equal(g, w) for g, w in zip(got, want)),
+                 max(max_abs_err(g, w) for g, w in zip(got, want)))
+        self.checks.append(check)
+        if self.checked is None:
+            self.checked = (check[0],) + check[2:]
+            self.inputs = (ins, kw)                     # for timing after the run
         del want
         return out
 
@@ -1170,6 +1245,7 @@ class KernelProbe:
                 equal = equal and bits_equal(g[r:r + step], wi)
                 err = max(err, max_abs_err(g[r:r + step], wi))
         self.checked = (tuple(args[0].shape), equal, err)
+        self.checks.append((self.checked[0], args[0].device.type, equal, err))
         return out
 
     def time_ms(self):
@@ -2819,6 +2895,7 @@ def main():
     from repro_torch.configs import get_config
     phase_build()
     phase_kernels(device)
+    phase_lint(device)
     counts, rows, serve_payload_bytes = phase_serve(get_config(ARCH), device)
     for kid, name, _, _ in KERNEL_INFO:
         require(counts[name] > 0, f"{kid} {name} was not launched on the main path")

@@ -12,7 +12,6 @@ get seeded frame / patch embeddings (``launch.serve.side_inputs``).
 from __future__ import annotations
 
 import argparse
-import time
 
 
 def main(argv=None) -> list:
@@ -29,6 +28,7 @@ def main(argv=None) -> list:
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import side_inputs
     from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.obs.trace import wall_s
     from repro_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
@@ -46,15 +46,15 @@ def main(argv=None) -> list:
              **side_inputs(cfg, args.batch, 0, device)}
 
     sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
-    t0 = time.perf_counter()
+    t0 = wall_s()
     logits, cache = prefill(params, cfg, batch, cache_len=maxlen + args.gen + 1)
     sync()
-    print(f"prefill {args.batch}x{maxlen} in {time.perf_counter() - t0:.2f}s on {device}")
+    print(f"prefill {args.batch}x{maxlen} in {wall_s() - t0:.2f}s on {device}")
 
     tok = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
     outs = [[] for _ in range(args.batch)]
     done = np.zeros(args.batch, bool)
-    t0 = time.perf_counter()
+    t0 = wall_s()
     for _ in range(args.gen):
         logits, cache = decode_step(params, cfg, tok, cache)
         tok = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
@@ -64,7 +64,7 @@ def main(argv=None) -> list:
                 done[i] = t == 0            # token 0 as stop
         if done.all():
             break
-    dt = time.perf_counter() - t0
+    dt = wall_s() - t0
     total = sum(len(o) for o in outs)
     print(f"decoded {total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s on {device})")
     for i, o in enumerate(outs):

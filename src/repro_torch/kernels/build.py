@@ -28,6 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = (CSRC / "quant.cu", CSRC / "bitmask.cu", CSRC / "prune.cu")
+HEADERS = (CSRC / "resources.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -39,6 +40,14 @@ NVCC_FLAGS = ARCH_FLAGS + (
 _P, _I64, _I32, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 _NM = (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _P)
 _WANDA = (_P,) * 8 + (_I64, _I64, _I32, _F, _F, _F, _F, _I32, _I64, _I64, _I64, _P)
+# resource reports (csrc/resources.cuh): (idx, d_in, out fields, name, name_len)
+_RES = (_I32, _I64, ctypes.POINTER(_I64), ctypes.c_char_p, _I32)
+RESOURCE_ENTRIES = {"quant.cu": "repro_quant_resources",
+                    "bitmask.cu": "repro_bitmask_resources",
+                    "prune.cu": "repro_prune_resources"}
+# the report's fields, in resources.cuh's order
+RESOURCE_FIELDS = ("count", "threads", "dyn_smem", "cluster", "regs", "static_smem",
+                   "local", "max_threads", "occupancy", "staged", "optin")
 SIGNATURES = {
     "repro_quant_dequant_2d": (_P, _P, _P, _I64, _I32, _P),
     "repro_quant_pack_2d": (_P, _P, _P, _P, _I64, _I32, _P),
@@ -50,6 +59,7 @@ SIGNATURES = {
     "repro_nm_prune_2d_bf16": _NM,
     "repro_wanda_prune_2d_f32": _WANDA,
     "repro_wanda_prune_2d_bf16": _WANDA,
+    **{entry: _RES for entry in RESOURCE_ENTRIES.values()},
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -77,7 +87,7 @@ def nvcc_path() -> str:
 def library_path() -> Path:
     """Where the library lives: named by a hash of the sources + flags."""
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -152,6 +162,21 @@ def launch(entry: str, device: torch.device, *args) -> None:
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{entry} failed to launch: {msg} ({err})")
+
+
+def resources(entry: str, idx: int, device: torch.device, d_in: int = 0) -> dict:
+    """The launch-resource report of kernel ``idx`` of C entry ``entry``
+    (``RESOURCE_FIELDS`` plus its ``name``) on ``device``; raise on a
+    nonzero error."""
+    lib = load()
+    out = (ctypes.c_longlong * len(RESOURCE_FIELDS))()
+    name = ctypes.create_string_buffer(128)
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(idx, d_in, out, name, len(name))
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{entry}({idx}, d_in={d_in}) failed: {msg} ({err})")
+    return {"name": name.value.decode(), **dict(zip(RESOURCE_FIELDS, out))}
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,

@@ -26,6 +26,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "resources.cuh"
+
 namespace {
 
 constexpr int kBits = 32;
@@ -82,6 +84,25 @@ int repro_unpack_mask_2d(const uint32_t* words, uint8_t* mask, long long w_count
   if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
   unpack_mask_kernel<<<grid, kThreads, 0, stream>>>(words, mask, w_count);
   return static_cast<int>(cudaGetLastError());
+}
+
+// RC003's resource report (resources.cuh) of kernel idx: 0 B4, 1 B5, each
+// as its entry above launches it.
+int repro_bitmask_resources(int idx, long long d_in, long long* out, char* name,
+                            int name_len) {
+  (void)d_in;
+  switch (idx) {
+    case 0:
+      return static_cast<int>(repro_resources::report(
+          (const void*)pack_mask_kernel, "pack_mask_kernel", 2, kThreads, 0, 1, false,
+          out, name, name_len));
+    case 1:
+      return static_cast<int>(repro_resources::report(
+          (const void*)unpack_mask_kernel, "unpack_mask_kernel", 2, kThreads, 0, 1,
+          false, out, name, name_len));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

@@ -92,6 +92,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "resources.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
@@ -165,6 +167,10 @@ constexpr int kCluster = 4;                 // selecting: blocks (strips) per cl
 constexpr int kRowThreads = kThreads / kCluster;   // rows a block stages per pass
 constexpr int kLive = 256;                  // keys gathered per warp
 constexpr int kLivePerLane = kLive / 32;
+// selecting launch's dynamic shared memory: the tau keys and the gather
+// buffers, then, when staged, kStagedRowSmem bytes of keys per row of d_in
+constexpr int kSelectHeadSmem = (kStrip + kStrip * kLive) * 4;
+constexpr int kStagedRowSmem = kStrip * 4;
 constexpr unsigned int kFull = 0xffffffffu;
 constexpr uint32_t kNanKey = 0xffffffffu;
 
@@ -549,6 +555,21 @@ int nm_prune(const T* w, const float* s, T* out, T* mask, long long d_in,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The selecting launch's dynamic shared memory for d_in rows: the tau keys
+// and the gather buffers, then the strip's keys when they fit the device's
+// opt-in limit (7008 rows on an H100's 227 KB).
+cudaError_t selecting_smem(int64_t d_in, int64_t* smem, bool* staged) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  const int64_t staged_bytes = kSelectHeadSmem + kStagedRowSmem * d_in;
+  *staged = staged_bytes <= optin;
+  *smem = *staged ? staged_bytes : kSelectHeadSmem;
+  return cudaSuccess;
+}
+
 template <typename T, int kMode, bool kSelect>
 int launch_wanda(const T* w, float* tau, const Stats& st, T* out, T* mask,
                  int64_t d_in, int64_t d_out, int64_t k, int64_t rows,
@@ -564,17 +585,10 @@ int launch_wanda(const T* w, float* tau, const Stats& st, T* out, T* mask,
                                           d_out, false);
     return static_cast<int>(cudaGetLastError());
   }
-  // stage the strip's keys when they fit beside the tau keys and the
-  // gather buffers (7008 rows on an H100's 227 KB)
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int64_t smem = 0;
+  bool staged = false;
+  cudaError_t err = selecting_smem(d_in, &smem, &staged);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t head_bytes = (kStrip + kStrip * kLive) * 4;
-  const int64_t staged_bytes = head_bytes + kStrip * d_in * 4;
-  const bool staged = staged_bytes <= optin;
-  const int64_t smem = staged ? staged_bytes : head_bytes;
   if (smem > 48 * 1024)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
@@ -629,6 +643,20 @@ int wanda_prune(const T* w, const float* xf, float* tau, const float* rowsum,
 #undef REPRO_WANDA_LAUNCH
 }
 
+// B8's instances in the report's order: (f32, bf16) x (wanda, ria,
+// symwanda) x (tau given, selecting).
+template <typename T>
+const void* wanda_instance(int mode, bool select) {
+  switch (mode * 2 + select) {
+    case 0: return (const void*)wanda_prune_kernel<T, kWanda, false>;
+    case 1: return (const void*)wanda_prune_kernel<T, kWanda, true>;
+    case 2: return (const void*)wanda_prune_kernel<T, kRia, false>;
+    case 3: return (const void*)wanda_prune_kernel<T, kRia, true>;
+    case 4: return (const void*)wanda_prune_kernel<T, kSymWanda, false>;
+    default: return (const void*)wanda_prune_kernel<T, kSymWanda, true>;
+  }
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  Each entry launches on `stream`
@@ -671,6 +699,37 @@ int repro_wanda_prune_2d_bf16(const __nv_bfloat16* w, const float* xf,
   return wanda_prune(w, xf, tau, rowsum, colsum, ynorm, out, mask, d_in, d_out,
                      mode, beta, one_minus_beta, mu_in, mu_out, select, k, rows,
                      cols, stream);
+}
+
+// RC003's resource report (resources.cuh) of kernel idx, each as its entry
+// above launches it: 0 B7 f32, 1 B7 bf16, then B8 at 2 + ((t * 3 + mode) * 2
+// + select) for t = 0 f32, 1 bf16; a selecting B8 at d_in rows.
+int repro_prune_resources(int idx, long long d_in, long long* out, char* name,
+                          int name_len) {
+  constexpr int kCount = 14;
+  if (idx == 0 || idx == 1)
+    return static_cast<int>(repro_resources::report(
+        idx ? (const void*)nm_prune_kernel<__nv_bfloat16> : (const void*)nm_prune_kernel<float>,
+        idx ? "nm_prune_kernel<bf16>" : "nm_prune_kernel<float>", kCount, kThreads, 0, 1,
+        false, out, name, name_len));
+  if (idx < 2 || idx >= kCount) return static_cast<int>(cudaErrorInvalidValue);
+  const int i = idx - 2, t = i / 6, mode = (i / 2) % 3;
+  const bool select = i % 2;
+  if (select && d_in < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int64_t smem = 0;
+  bool staged = false;
+  if (select) {
+    const cudaError_t err = selecting_smem(d_in, &smem, &staged);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  static const char* const kModes[] = {"wanda", "ria", "symwanda"};
+  char label[64];
+  snprintf(label, sizeof(label), "wanda_prune_kernel<%s,%s,%s>", t ? "bf16" : "float",
+           kModes[mode], select ? "select" : "given");
+  return static_cast<int>(repro_resources::report(
+      t ? wanda_instance<__nv_bfloat16>(mode, select) : wanda_instance<float>(mode, select),
+      label, kCount, kThreads, static_cast<size_t>(smem), select ? kCluster : 1, staged,
+      out, name, name_len));
 }
 
 }  // extern "C"

@@ -53,6 +53,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "resources.cuh"
+
 namespace {
 
 constexpr int kQBlock = 512;
@@ -300,6 +302,33 @@ int repro_stream_quant_pack_2d(const float* x, const float* u, int8_t* q,
   stream_quant_pack_kernel<<<grid, kThreads, kStreamSmem, stream>>>(
       x, u, q, scales, n_tiles, fs, 1.0f / fs);
   return static_cast<int>(cudaGetLastError());
+}
+
+// RC003's resource report (resources.cuh) of kernel idx: 0 B1, 1 B2, 2 B3,
+// 3 B6, each as its entry above launches it.
+int repro_quant_resources(int idx, long long d_in, long long* out, char* name,
+                          int name_len) {
+  (void)d_in;
+  switch (idx) {
+    case 0:
+      return static_cast<int>(repro_resources::report(
+          (const void*)quant_kernel<false>, "quant_kernel<false>", 4, kThreads, 0, 1,
+          false, out, name, name_len));
+    case 1:
+      return static_cast<int>(repro_resources::report(
+          (const void*)quant_kernel<true>, "quant_kernel<true>", 4, kThreads, 0, 1,
+          false, out, name, name_len));
+    case 2:
+      return static_cast<int>(repro_resources::report(
+          (const void*)unpack_dequant_kernel, "unpack_dequant_kernel", 4, kThreads, 0,
+          1, false, out, name, name_len));
+    case 3:
+      return static_cast<int>(repro_resources::report(
+          (const void*)stream_quant_pack_kernel, "stream_quant_pack_kernel", 4,
+          kThreads, kStreamSmem, 1, false, out, name, name_len));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* repro_cuda_error_string(int err) {

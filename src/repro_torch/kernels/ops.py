@@ -69,8 +69,10 @@ def _quant_tiles(x: torch.Tensor, noise: Optional[torch.Tensor] = None,
     definition on purpose — quantize_pack, stream_quantize_pack and
     quantize_dequantize are bit-identical only while they pad and draw
     identically.  When ``x`` already fills whole tiles the padded view is
-    ``x`` itself (no copy)."""
-    flat = x.contiguous().reshape(-1)
+    ``x`` itself (no copy).  The kernels compute in f32: another float dtype
+    is widened first (exact for bf16 and f16), as the JAX kernels cast their
+    tile."""
+    flat = x.contiguous().reshape(-1).float()
     d = flat.numel()
     rows_pad = tile_rows(d)
     n = rows_pad * _q8.QBLOCK
@@ -122,10 +124,12 @@ def unpack_dequantize(q: torch.Tensor, scales: torch.Tensor,
 def quantize_dequantize(x: torch.Tensor, noise: Optional[torch.Tensor] = None,
                         generator: Optional[torch.Generator] = None,
                         bits: int = 8) -> torch.Tensor:
-    """Blockwise absmax quantize-dequantize of an any-shape f32 tensor."""
+    """Blockwise absmax quantize-dequantize of an any-shape float tensor,
+    computed in f32 and returned in ``x``'s dtype (the JAX kernel's
+    ``out_shape``)."""
     padded, noise, d = _quant_tiles(x, noise, generator)
     out = _q8.quant_dequant_2d(padded, noise, bits=bits)
-    return out.reshape(-1)[:d].reshape(x.shape)
+    return out.reshape(-1)[:d].reshape(x.shape).to(x.dtype)
 
 
 def nibble_pack(q: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,9 @@ Three step flavors, keyed by ``SyncConfig.mode``:
                    EF21-compressed parameter sync every ``sync_period`` steps
                    or through the aggregation-tree cascade (Ch. 3 / Ch. 5)
 
+``make_prefill_step`` / ``make_decode_step`` wrap the model's prefill and
+decode for one config, as the reference's serving factories do.
+
 A step is ``step(state, batch, survivors=None, noise=None) -> (state,
 metrics)``.  Its draws come from ``TrainState.generator``; ``noise`` (a
 test hook) hands the sync the JAX package's draws instead, nested as
@@ -32,7 +35,8 @@ import torch
 from repro_torch.comm import buckets as bk
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core import distributed as dist
-from repro_torch.models import loss_fn
+from repro_torch.models import decode_step as model_decode_step
+from repro_torch.models import loss_fn, prefill
 from repro_torch.models.layers import embed
 from repro_torch.obs import trace as obs_trace
 from repro_torch.optim.optimizers import (OptState, clip_scale, make_optimizer,
@@ -244,3 +248,25 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_groups: int, n_pods: in
     if mode in ("hier", "local"):
         return local_step
     raise ValueError(mode)
+
+
+# ---------------------------------------------------------------------------
+# Serving steps
+# ---------------------------------------------------------------------------
+def make_prefill_step(cfg: ModelConfig):
+    """``prefill_step(params, batch) -> (logits, cache)``: the model's prefill
+    for ``cfg``.  The reference's factory also takes ``remat``, which only
+    shapes what a backward pass recomputes; a prefill runs none."""
+    def prefill_step(params, batch):
+        return prefill(params, cfg, batch)
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig):
+    """``decode_one(params, token, cache) -> (logits, cache)``: one greedy
+    decode step for ``cfg``; the cache is updated in place."""
+    def decode_one(params, token, cache):
+        return model_decode_step(params, cfg, token, cache)
+
+    return decode_one

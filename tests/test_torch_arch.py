@@ -259,6 +259,27 @@ def test_prefill_and_decode_match_jax(jx, arch, margins):
         assert margins() > 0
 
 
+@pytest.mark.parametrize("arch", ("h2o-danube-1.8b", "mamba2-2.7b"))
+def test_serving_step_factories_match_jax(jx, arch):
+    """``training.steps.make_prefill_step`` / ``make_decode_step`` against
+    the JAX package's factories: one reduced prefill and one decode step."""
+    from repro.training import steps as jsteps
+    from repro_torch.training import steps as tsteps
+    jax, jnp, _, _ = jx
+    cfg, tcfg = _cfgs(jx, arch)
+    jp, tp = _params(jx, cfg, seed=3)
+    toks = np.random.default_rng(6).integers(1, cfg.vocab_size, (2, 12)).astype(np.int32)
+    jb, tb = _batches(jnp, {"tokens": toks})
+    jl, jc = jsteps.make_prefill_step(cfg)(jp, jb)
+    tl, tc = tsteps.make_prefill_step(tcfg)(tp, tb)
+    _close(arch, tl.numpy(), jl)
+    tok = np.asarray(jnp.argmax(jl[:, -1, :cfg.vocab_size], -1))[:, None]
+    jl, jc = jsteps.make_decode_step(cfg)(jp, jnp.asarray(tok, jnp.int32), jc)
+    tl, tc = tsteps.make_decode_step(tcfg)(tp, torch.tensor(tok).long(), tc)
+    _close(arch, tl.numpy(), jl)
+    assert tc["pos"] == int(jc["pos"]) == 13
+
+
 @pytest.mark.parametrize("arch", ("dbrx-132b", "jamba-1.5-large-398b", "jamba-period",
                                   "llama4-scout-17b-a16e", "mamba2-2.7b",
                                   "seamless-m4t-large-v2"))

@@ -48,7 +48,9 @@ def test_the_scan_covers_every_ported_module():
                  "repro_torch.configs.dbrx_132b",
                  "repro_torch.configs.jamba_1_5_large_398b",
                  "repro_torch.examples.serve_decode", "repro_torch.obs.report",
-                 "repro_torch.utils.logging"):
+                 "repro_torch.utils.logging", "repro_torch.lint.framework",
+                 "repro_torch.lint.callgraph", "repro_torch.lint.contracts",
+                 "repro_torch.lint.__main__", "repro_torch.lint.rules.rl002_randomness"):
         assert name in MODULES, name
 
 

@@ -98,6 +98,34 @@ def test_ops_bitwise_equal_jax_ops(jx, bits):
     assert _bits(ud.numpy()) == _bits(jud) == _bits(qd.numpy())
 
 
+@pytest.mark.parametrize("bits", [8, 4])
+def test_ops_bf16_input_bitwise_equal_jax_ops(jx, bits):
+    """A bf16 tensor is widened to f32 for the kernels (as the JAX kernels
+    cast their tile): the bf16 carrier and the (q, scales) planes equal the
+    JAX wrappers' bit for bit."""
+    jax, jnp, _, _, jops = jx
+    rng = np.random.default_rng(20 + bits)
+    d = 3000
+    x = (rng.standard_normal(d) * 4).astype(np.float32)
+    x[512:1024] = 0.0                                    # a whole zero row
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    jxb = jnp.asarray(tx.float().numpy()).astype(jnp.bfloat16)   # the same bf16 values
+    key = jax.random.PRNGKey(bits)
+    noise = np.array(jax.random.uniform(key, (ops.tile_rows(d), 512), jnp.float32))
+    tn = torch.from_numpy(noise)
+    qd = ops.quantize_dequantize(tx, noise=tn, bits=bits)
+    jqd = jops.quantize_dequantize(jxb, key, bits=bits)
+    assert qd.dtype == torch.bfloat16 and jqd.dtype == jnp.bfloat16
+    assert _bits(qd.view(torch.int16).numpy()) == _bits(np.asarray(jqd).view(np.int16))
+    q, s = ops.quantize_pack(tx, noise=tn, bits=bits)
+    jq, js = jops.quantize_pack(jxb, key, bits=bits)
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert _bits(q.numpy()) == _bits(jq) and _bits(s.numpy()) == _bits(js)
+    if bits == 8:                                        # B6 is 8-bit only
+        sq, ss = ops.stream_quantize_pack(tx, tn)
+        assert _bits(sq.numpy()) == _bits(jq) and _bits(ss.numpy()) == _bits(js)
+
+
 def test_ops_generator_noise_is_reproducible():
     x = torch.randn(2000, generator=torch.Generator().manual_seed(0))
     a = ops.quantize_dequantize(x, generator=torch.Generator().manual_seed(5))

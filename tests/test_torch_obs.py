@@ -46,12 +46,37 @@ def _clean_obs_state():
     _reset_obs()
 
 
+def _reset_ref_trace(trace):
+    """The JAX package's flight recorder as ``_reset_obs`` leaves the port's:
+    default capacity, off, no spans, no meta.  Its own tests may leave spans
+    behind in this worker's process."""
+    trace.enable(capacity=trace.DEFAULT_CAPACITY)
+    trace.disable()
+    trace.get_tracer().reset()
+    trace.get_tracer().meta.clear()
+
+
 @pytest.fixture
 def ref_trace():
     from repro.obs import trace
+    _reset_ref_trace(trace)
     yield trace
-    trace.disable()
-    trace.get_tracer().reset()
+    _reset_ref_trace(trace)
+
+
+def test_ref_trace_reset_clears_a_stale_recorder():
+    """A span and meta left in the JAX package's recorder (as one of its own
+    tests leaves them) are gone after the fixture's reset."""
+    from repro.obs import trace
+    trace.enable(capacity=8)
+    with trace.span("codec/encode", nbytes=100, level="uplink"):
+        pass
+    trace.set_meta(label="stale")
+    assert trace.get_tracer().spans() and trace.get_tracer().meta
+    _reset_ref_trace(trace)
+    tr = trace.get_tracer()
+    assert not trace.enabled() and tr.capacity == trace.DEFAULT_CAPACITY
+    assert tr.spans() == [] and tr.meta == {}
 
 
 def test_public_names_match_the_reference():
