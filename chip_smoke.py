@@ -166,6 +166,28 @@ the script exits nonzero without printing a result:
            qsgd_kernel (encode B2, decode B3; each level in ambient(level=))
            audited by obs.report against round_ledger's bytes: bytes_match
            True and exit 0, exit 1 with one level's ledger bytes raised by 1
+  longctx  the tiled (flash) attention at lengths no whole score matrix fits
+           (bf16, random weights from seed 0): (a) h2o-danube-1.8b whole,
+           one 32,768-token prompt (prefill_32k's length) then 4 greedy
+           decode steps, with BANDED off and on, and the two runs' last-
+           position logits' max abs difference; (b) seamless-m4t-large-v2's
+           24-layer encoder on 32,768 source frames plus a 32-token decoder
+           prefill cross-attending to them; (c) one dense danube train step
+           (AdamW) at seq 16,384, batch 1, through forward_train and the
+           tiled backward, its loss finite; (d) layer 0's prefill attention
+           at S = 2048 in f32 within 2e-5 of a whole-matrix f32 softmax
+           computed by this script.  ms and peak GiB for each run; no kernel
+  dp       the data-parallel EF-BV sync, core.ef_bv.efbv_sync_worker under
+           qsgd_kernel (B1 on every rank, every launch held bit for bit to
+           its plain version): (a) a 1-rank NCCL group, h2o-danube-1.8b whole
+           at full width, one microbatch's grads (seq 64), one sync equal
+           bit for bit to core.distributed.efbv_sync's per-leaf path with
+           G = 1 on the same grads and draws; (b) 4 spawned ranks on the one
+           card over gloo (CUDA tensors staged through host memory: not an
+           NVLink figure), danube at full width cut to 4 of 24 layers, each
+           rank its own batch; every rank's (g_est, h_i, h_bar) equal bit for
+           bit to the per-leaf efbv_sync with G = 4 on every rank's gathered
+           grads and replayed draws.  Sync ms per rank, probed and unprobed
   timing   B1-B3 and B6 (beside B2) at the serve path's shape, B4/B5 at the
            codec path's d, and B7/B8 (both modes, three score modes) at one
            full-width w_in (2560 x 6912 bf16) on the card (CUDA events,
@@ -284,6 +306,16 @@ TRAIN_SEQ, TRAIN_BATCH = 64, 2
 TRAIN_RUNS = (("dense", {"mode": "dense"}, 2, 1, 1),
               ("efbv + qsgd_kernel", {"mode": "efbv", "compressor": "qsgd_kernel"}, 3, 2, 1),
               ("hier + qsgd", {"mode": "hier", "compressor": "qsgd", "sync_period": 2}, 4, 1, 2))
+# longctx phase: danube's prompt (prefill_32k's length) and decode steps,
+# seamless's source frames and decoder prompt, the train step's length, the
+# length of the one-layer check against a whole-matrix softmax and its
+# tolerance (the CPU tests' atol)
+LONG_PROMPT, LONG_DECODE, LONG_FRAMES, LONG_DEC_PROMPT = 32768, 4, 32768, 32
+LONG_TRAIN_SEQ, LONG_CHECK_SEQ, LONG_ATOL = 16384, 2048, 2e-5
+# dp phase: the microbatch's length, the spawned ranks, (b)'s depth (of 24),
+# the ranks' time limit; the seeds of the batches, h_i, h_bar and the draws
+DP_SEQ, DP_RANKS, DP_LAYERS, DP_JOIN_S = 64, 4, 4, 600
+DP_BATCH_SEED, DP_H_SEED, DP_HBAR_SEED, DP_DRAW_SEED = 10, 200, 300, 1000
 
 
 class SmokeFailure(RuntimeError):
@@ -2602,6 +2634,418 @@ def phase_archtrain(device):
 
 
 # ---------------------------------------------------------------------------
+def peak_reset(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def peak_gib(device):
+    import torch
+    return torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else 0.0
+
+
+def whole_matrix_attention(q, k, v, kind, window, chunk):
+    """The check's own attention: one f32 softmax over the whole (S, S)
+    score matrix, q (B,S,H,hd), k/v (B,S,KV,hd) f32 -> (B,S,H,hd)."""
+    import math
+    import torch
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qf = (q * (1.0 / math.sqrt(hd))).reshape(B, S, KV, H // KV, hd)
+    s = torch.einsum("bqkgh,bnkh->bqkgn", qf, k)
+    i = torch.arange(S, device=q.device)
+    ok = i[:, None] >= i[None, :]
+    if kind == "attn_swa":
+        ok &= (i[:, None] - i[None, :]) < window
+    elif kind == "attn_chunk":
+        ok &= (i[:, None] // chunk) == (i[None, :] // chunk)
+    s = s.masked_fill(~ok[None, :, None, None, :], -1e30)
+    out = torch.einsum("bqkgn,bnkh->bqkgh", torch.softmax(s, dim=-1), v)
+    return out.reshape(B, S, H, hd)
+
+
+def phase_longctx(device, prompt=LONG_PROMPT, frames=LONG_FRAMES, train_seq=LONG_TRAIN_SEQ,
+                  check_seq=LONG_CHECK_SEQ):
+    """Part A on the card: the tiled attention at lengths the whole score
+    matrix cannot hold.  (a) h2o-danube-1.8b whole, one prompt of ``prompt``
+    tokens (prefill_32k's length) then LONG_DECODE greedy decode steps, with
+    BANDED off and on (the last-position logits' max abs difference); (b)
+    seamless-m4t-large-v2's encoder on ``frames`` source frames plus a
+    decoder prefill of LONG_DEC_PROMPT tokens cross-attending to it; (c) one
+    dense danube train step (forward_train and the tiled backward) at
+    ``train_seq``; (d) one danube layer's prefill attention at ``check_seq``
+    against a whole-matrix f32 softmax, within LONG_ATOL.  Each run prints
+    ms and its peak.  No kernel of the repo runs here."""
+    import math
+    import torch
+    from repro_torch import models as tm
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SyncConfig, TrainConfig
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import embed, rmsnorm
+    from repro_torch.models.transformer import _attn_cfg, _period
+    from repro_torch.training import steps
+
+    t_phase = time.perf_counter()
+    cfg = get_config(ARCH)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = tm.init_params(0, cfg, device)
+    toks = torch.randint(1, cfg.vocab_size, (1, prompt), generator=gen, device=device)
+    last, greedy = {}, {}
+    for banded in (False, True):
+        attn.BANDED = banded
+        free_cached(device)
+        peak_reset(device)
+        try:
+            with torch.no_grad():
+                outs, tokens, pre_s, step_s, cache = decode_run(
+                    cfg, params, {"tokens": toks}, LONG_DECODE, device)
+        finally:
+            attn.BANDED = False
+        require(all(bool(torch.isfinite(o.float()).all()) for o in outs),
+                f"(a) BANDED={banded}: non-finite logits")
+        require(tuple(outs[0].shape) == (1, 1, cfg.padded_vocab()),
+                f"(a) prefill logits {tuple(outs[0].shape)}")
+        last[banded], greedy[banded] = outs[0].float(), tokens
+        log("longctx", f"(a) {ARCH} whole, prefill {prompt} tokens, BANDED={banded}: "
+                       f"{1e3 * pre_s:.2f} ms, {LONG_DECODE} decode steps "
+                       f"{', '.join(f'{1e3 * s:.2f}' for s in step_s)} ms, peak "
+                       f"{peak_gib(device):.2f} GiB")
+        del outs, cache
+    log("longctx", f"(a) last-position logits BANDED off vs on: max abs diff "
+                   f"{max_abs_err(last[False], last[True]):.6g} (of max "
+                   f"{float(last[False].abs().max()):.4g}); greedy tokens equal: "
+                   f"{bool(torch.equal(greedy[False], greedy[True]))}")
+
+    # (d) one layer's prefill attention against the whole f32 matrix
+    acfg = _attn_cfg(cfg, cfg.layer_kinds()[0])
+    with torch.no_grad():
+        bp = _period(params["blocks"], 0)["pos0"]
+        x = rmsnorm(bp["norm1"], embed(params["embed"], toks[:, :check_seq]), cfg.norm_eps)
+        q, k, v = (t.float() for t in attn._project_qkv(
+            bp["attn"], x, acfg["num_heads"], acfg["num_kv_heads"], acfg["head_dim"],
+            acfg["qk_norm"], acfg["use_rope"], torch.arange(check_seq, device=device)[None],
+            acfg["rope_theta"]))
+        tiled = attn._flash_attention(q, k, v, acfg["kind"], acfg["window"], acfg["chunk"])
+        whole = whole_matrix_attention(q, k, v, acfg["kind"], acfg["window"], acfg["chunk"])
+    err = max_abs_err(tiled, whole)
+    require(err <= LONG_ATOL, f"(d) tiled vs whole-matrix softmax: {err} > {LONG_ATOL}")
+    log("longctx", f"(d) layer 0 prefill attention ({acfg['kind']}, S={check_seq}, f32, "
+                   f"tiles {attn.BLOCK_Q}x{attn.BLOCK_K}) vs a whole-matrix f32 softmax: "
+                   f"max_abs_err {err:.3g} <= {LONG_ATOL}")
+    del tiled, whole, q, k, v, x
+
+    # (c) one dense train step at train_seq
+    tc = TrainConfig(model=cfg, seq_len=train_seq, global_batch=1, lr=3e-3, warmup_steps=10,
+                     total_steps=1, sync=SyncConfig(mode="dense"))
+    seq = torch.randint(1, cfg.vocab_size, (1, train_seq + 1), generator=gen, device=device)
+    batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+    free_cached(device)
+    peak_reset(device)
+    state = steps.init_train_state(torch.Generator(device=device).manual_seed(1), params, tc, 1, 1)
+    step = steps.make_train_step(cfg, tc, 1, 1)
+    (state, metrics), step_s = timed(device, lambda: step(state, batch))
+    loss = float(metrics["loss"])
+    require(math.isfinite(loss), f"(c) loss {loss}")
+    log("longctx", f"(c) {ARCH} dense train step, seq {train_seq}, batch 1 (remat "
+                   f"{tc.remat}, AdamW): loss {loss:.4f}, {1e3 * step_s:.2f} ms, peak "
+                   f"{peak_gib(device):.2f} GiB")
+    del state, metrics, step, params, batch
+    free_cached(device)
+
+    # (b) seamless's encoder at `frames` source frames + a short decoder prefill
+    scfg = get_config(SEAMLESS_ARCH)
+    sparams = tm.init_params(0, scfg, device)
+    dtype = tm.model_dtype(scfg)
+    src = torch.randn((1, frames, scfg.enc_d_model or scfg.d_model), generator=gen,
+                      device=device).to(dtype)
+    dec = torch.randint(1, scfg.vocab_size, (1, LONG_DEC_PROMPT), generator=gen, device=device)
+    peak_reset(device)
+    with torch.no_grad():
+        (logits, cache), s = timed(device, lambda: tm.prefill(
+            sparams, scfg, {"tokens": dec, "src_embeds": src}))
+    require(bool(torch.isfinite(logits.float()).all()), "(b) non-finite logits")
+    require(tuple(cache["enc_memory"].shape) == (1, frames, scfg.enc_d_model or scfg.d_model),
+            f"(b) enc_memory {tuple(cache['enc_memory'].shape)}")
+    log("longctx", f"(b) {SEAMLESS_ARCH}: encoder ({scfg.enc_layers} layers) on {frames} "
+                   f"frames + decoder prefill of {LONG_DEC_PROMPT} tokens: {1e3 * s:.2f} ms, "
+                   f"peak {peak_gib(device):.2f} GiB")
+    del sparams, src, logits, cache
+    free_cached(device)
+    log("longctx", f"phase {time.perf_counter() - t_phase:.2f} s")
+
+
+def dp_config(layers=DP_LAYERS, reduced=False):
+    """h2o-danube-1.8b at full width (``reduced``: its reduced config, for a
+    rehearsal on the CPU) with its depth cut to ``layers`` (None: whole)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(ARCH).reduced() if reduced else get_config(ARCH)
+    return cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
+
+
+def dp_inputs(cfg, device, seed, rank):
+    """Seeded params, one microbatch's grads (seq DP_SEQ) from batch seed
+    ``seed``, rank ``rank``'s f32 control variates h_i and the shared h_bar
+    (drawn leaf by leaf in ``tree_flatten`` order, so the check can replay
+    them) -> (grads, h, h_bar)."""
+    import torch
+    from repro_torch import models as tm
+    from repro_torch.utils.tree import tree_flatten, tree_unflatten
+    params = tm.init_params(0, cfg, device)
+    leaves, td = tree_flatten(params)
+    toks = torch.randint(1, cfg.vocab_size, (1, DP_SEQ + 1),
+                         generator=torch.Generator(device=device).manual_seed(seed),
+                         device=device)
+    req = [p.detach().requires_grad_(True) for p in leaves]
+    with torch.enable_grad():
+        loss, _ = tm.loss_fn(tree_unflatten(td, req), cfg,
+                             {"tokens": toks[:, :-1], "targets": toks[:, 1:]})
+        grads = torch.autograd.grad(loss, req, allow_unused=True)
+    grads = tree_unflatten(td, [torch.zeros_like(p) if g is None else g
+                                for g, p in zip(grads, leaves)])
+    del req, params, leaves
+    return grads, dp_controls(grads, DP_H_SEED + rank, device), \
+        dp_controls(grads, DP_HBAR_SEED, device)
+
+
+def dp_controls(like, seed, device):
+    """A control-variate tree shaped as ``like``: f32 draws * 1e-3 from
+    ``seed``, leaf by leaf."""
+    import torch
+    from repro_torch.utils.tree import tree_map
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tree_map(lambda t: dp_control(t.shape, gen, device), like)
+
+
+def dp_control(shape, gen, device):
+    import torch
+    return torch.randn(tuple(shape), generator=gen, device=device).mul_(1e-3)
+
+
+def dp_worker(grads, h, hb, world, rank, device, probe=None):
+    """One ``efbv_sync_worker`` call under qsgd_kernel over the default group
+    with rank ``rank``'s draws; with ``probe`` (a KernelProbe of B1), every
+    B1 launch is held bit for bit to its plain version.  -> ((g_est, h_i,
+    h_bar), seconds)."""
+    import torch
+    from repro_torch.configs.base import SyncConfig
+    from repro_torch.core import distributed as tdist
+    from repro_torch.core.ef_bv import efbv_sync_worker
+    from repro_torch.kernels import ops, quant8
+    sync = SyncConfig(mode="efbv", compressor="qsgd_kernel")
+    c, (lam, nu) = tdist.build_compressor(sync), tdist.sync_params(sync, world)
+    gen = torch.Generator(device=device).manual_seed(DP_DRAW_SEED + rank)
+    if probe is not None:
+        ops._q8 = probe
+    try:
+        return timed(device, lambda: efbv_sync_worker(grads, h, hb, c, lam, nu, generator=gen))
+    finally:
+        ops._q8 = quant8
+
+
+def dp_main_path(grads, h, hb, world, rank, device):
+    """The main path: the probed sync, its launch counts set to 0 before
+    and read after.  -> (results, B1 launches, held checks, seconds)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import quant8, ref
+    probe = KernelProbe(quant8, "quant_dequant_2d", ref.quant_dequant_ref, every=True)
+    kernels.reset_launch_counts()
+    out, s = dp_worker(grads, h, hb, world, rank, device, probe)
+    launches = kernels.launch_counts()["quant_dequant_2d"]
+    held = [ch for ch in probe.checks if ch[1] == device.type]
+    require(all(ch[2] for ch in held) and (len(held) == launches or device.type != "cuda"),
+            f"dp rank {rank}: {launches} B1 launches, {len(held)} held, unequal "
+            f"{[ch for ch in held if not ch[2]]}")
+    return out, launches, held, s
+
+
+def fingerprint(tree):
+    """Per leaf, the sum of its bits as int64 (equal trees, equal sums)."""
+    import torch
+    from repro_torch.utils.tree import tree_leaves
+    return torch.stack([t.contiguous().view(torch.int32).sum(dtype=torch.int64)
+                        for t in tree_leaves(tree)])
+
+
+def dp_check(grads, hb, out, world, rank, device, gathered):
+    """Leaf by leaf: every rank's gradient (``gathered(leaf)`` stacks them,
+    rank order), every rank's h_i and draws replayed from their seeds and
+    this h_bar through ``core.distributed.efbv_sync``'s per-leaf path with
+    G = world; this rank's (g_est, h_i, h_bar) must equal it bit for bit.
+    -> the leaves checked."""
+    import torch
+    from repro_torch.configs.base import SyncConfig
+    from repro_torch.core import distributed as tdist
+    from repro_torch.kernels.ops import tile_rows
+    from repro_torch.utils.tree import tree_leaves
+    sync = SyncConfig(mode="efbv", compressor="qsgd_kernel")
+    c, (lam, nu) = tdist.build_compressor(sync), tdist.sync_params(sync, world)
+    gh = [torch.Generator(device=device).manual_seed(DP_H_SEED + r) for r in range(world)]
+    gu = [torch.Generator(device=device).manual_seed(DP_DRAW_SEED + r) for r in range(world)]
+    ge, nh, nhb = (tree_leaves(t) for t in out)
+    for li, (g, b) in enumerate(zip(tree_leaves(grads), tree_leaves(hb))):
+        stacked = gathered(g)
+        h = torch.stack([dp_control(g.shape, gh[r], device) for r in range(world)])
+        noise = [[torch.rand((tile_rows(g.numel()), 512), generator=gu[r], device=device)
+                  for r in range(world)]]
+        state = tdist.SyncState(h={"x": h}, h_bar={"x": b.clone()}, step=0)
+        est, state = tdist.efbv_sync({"x": stacked}, state, c, lam, nu, bucket_size=0,
+                                     noise=noise)
+        require(bits_equal(est["x"], ge[li]) and bits_equal(state.h["x"][rank], nh[li])
+                and bits_equal(state.h_bar["x"], nhb[li]),
+                f"dp rank {rank} leaf {li}: efbv_sync_worker != efbv_sync (G={world})")
+        del stacked, h, noise, state, est
+    return len(ge)
+
+
+def dp_rank(rank, world, on_card, store, out_dir, layers, reduced):
+    """One spawned rank of dp (b): its own batch's grads on the card, the
+    probed sync over the gloo group, the check, then an unprobed timing run
+    (its results' fingerprints equal to the probed run's); its results to
+    ``out_dir``/rank<r>.json."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import torch
+    import torch.distributed as dist
+    from repro_torch.utils.tree import tree_leaves
+    torch.set_num_threads(2)
+    device = torch.device("cuda", 0) if on_card else torch.device("cpu")
+    if on_card:
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=store, rank=rank, world_size=world)
+    try:
+        grads, h, hb = dp_inputs(dp_config(layers, reduced), device, DP_BATCH_SEED + rank, rank)
+        n = sum(g.numel() for g in tree_leaves(grads))
+        peak_reset(device)
+        out, launches, held, sync_s = dp_main_path(grads, h, hb, world, rank, device)
+        del h                                    # the check and the timing replay it
+
+        def gathered(g):
+            buf = g.new_empty((world,) + tuple(g.shape))
+            dist.all_gather(list(buf.unbind(0)), g.contiguous())
+            return buf
+
+        leaves = dp_check(grads, hb, out, world, rank, device, gathered)
+        want = fingerprint(out)
+        del out
+        peak = peak_gib(device)
+        h = dp_controls(grads, DP_H_SEED + rank, device)
+        again, timing_s = dp_worker(grads, h, hb, world, rank, device)
+        require(torch.equal(fingerprint(again), want),
+                f"dp rank {rank}: the unprobed sync != the probed one")
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump({"launches": launches, "held": len(held),
+                       "max_abs_err": max((ch[3] for ch in held), default=0.0),
+                       "sync_ms": 1e3 * sync_s, "timing_ms": 1e3 * timing_s,
+                       "peak_gib": peak, "leaves": leaves, "params": n}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_single(device, layers, reduced, store):
+    """dp (a): a 1-rank NCCL group (gloo off the card), the whole model's
+    grads, the probed sync, an unprobed timing run, then the single-process
+    per-leaf efbv_sync with G = 1 on the same grads and draws.  -> B1
+    launches."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import SyncConfig
+    from repro_torch.core import distributed as tdist
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    on_card = device.type == "cuda"
+    dist.init_process_group("nccl" if on_card else "gloo", init_method=store, rank=0,
+                            world_size=1)
+    try:
+        grads, h, hb = dp_inputs(dp_config(None, reduced), device, DP_BATCH_SEED, 0)
+        n = sum(g.numel() for g in tree_leaves(grads))
+        peak_reset(device)
+        out, launches, held, sync_s = dp_main_path(grads, h, hb, 1, 0, device)
+        require(launches > 0 or not on_card, "dp (a): B1 was not launched")
+        want = fingerprint(out)
+        again, timing_s = dp_worker(grads, h, hb, 1, 0, device)
+        require(torch.equal(fingerprint(again), want), "dp (a): the unprobed sync != the probed one")
+        del again
+        peak = peak_gib(device)
+        sync = SyncConfig(mode="efbv", compressor="qsgd_kernel")
+        lam, nu = tdist.sync_params(sync, 1)
+        state = tdist.SyncState(h=tree_map(lambda t: t[None], h), h_bar=hb, step=0)
+        est, state = tdist.efbv_sync(
+            tree_map(lambda t: t[None], grads), state, tdist.build_compressor(sync), lam, nu,
+            bucket_size=0, generator=torch.Generator(device=device).manual_seed(DP_DRAW_SEED))
+        pairs = zip(tree_leaves(out[0]) + tree_leaves(out[1]) + tree_leaves(out[2]),
+                    tree_leaves(est) + [t[0] for t in tree_leaves(state.h)]
+                    + tree_leaves(state.h_bar))
+        require(all(bits_equal(a, b) for a, b in pairs),
+                "dp (a): efbv_sync_worker's (g_est, h_i, h_bar) != efbv_sync (G=1)")
+        log("dp", f"(a) {ARCH} whole ({n} params), 1-rank {dist.get_backend()} group: "
+                  f"{launches} B1 launches, each == plain bit for bit (max_abs_err "
+                  f"{max((ch[3] for ch in held), default=0.0)}); (g_est, h_i, h_bar) == "
+                  f"efbv_sync per-leaf (G=1) bit for bit; sync {1e3 * sync_s:.2f} ms probed, "
+                  f"{1e3 * timing_s:.2f} ms unprobed; peak {peak:.2f} GiB")
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dp(device, layers_b=DP_LAYERS, world=DP_RANKS, join_s=DP_JOIN_S, reduced=False):
+    """Part C on the card: the data-parallel EF-BV sync
+    (``core.ef_bv.efbv_sync_worker``) under qsgd_kernel, B1 on every rank,
+    every B1 launch held bit for bit to its plain version.  (a) A 1-rank
+    NCCL group (file store): h2o-danube-1.8b whole at full width, one
+    microbatch's grads (seq DP_SEQ), one sync equal bit for bit to
+    ``core.distributed.efbv_sync``'s per-leaf path with G = 1 on the same
+    grads and draws.  (b) ``world`` spawned ranks on the one card over
+    ``gloo`` (which stages CUDA tensors through host memory: not an NVLink
+    figure), danube at full width cut to ``layers_b`` layers, each rank its
+    own batch; each rank's (g_est, h_i, h_bar) equal bit for bit to the
+    per-leaf efbv_sync with G = world on every rank's gathered grads and
+    replayed draws.  ``reduced``: the reduced config (a CPU rehearsal).
+    -> B1 launches of both."""
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    tmp = tempfile.mkdtemp()
+    try:
+        launches_a = dp_single(device, None, reduced, "file://" + os.path.join(tmp, "store_a"))
+        free_cached(device)
+        out_dir = os.path.join(tmp, "ranks")
+        os.makedirs(out_dir)
+        ctx = mp.start_processes(dp_rank, args=(world, on_card, "file://" + os.path.join(
+            tmp, "store_b"), out_dir, layers_b, reduced), nprocs=world, join=False,
+            start_method="spawn")
+        deadline = time.monotonic() + join_s
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise SmokeFailure(f"dp (b): the {world} ranks did not finish in {join_s} s")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp)
+    depth = dp_config(None, reduced).num_layers
+    for r, res in enumerate(ranks):
+        require(res["launches"] > 0 or not on_card, f"dp (b) rank {r}: B1 was not launched")
+        log("dp", f"(b) rank {r}/{world} on one card over gloo: {ARCH} full width, "
+                  f"{layers_b} of {depth} layers ({res['params']} params); "
+                  f"{res['launches']} B1 launches, each == plain bit for bit (max_abs_err "
+                  f"{res['max_abs_err']}); (g_est, h_i, h_bar) == efbv_sync per-leaf "
+                  f"(G={world}) on {res['leaves']} leaves bit for bit; sync "
+                  f"{res['sync_ms']:.2f} ms probed, {res['timing_ms']:.2f} ms unprobed (gloo, "
+                  f"staged through host memory); peak {res['peak_gib']:.2f} GiB")
+    launches_b = sum(res["launches"] for res in ranks)
+    log("dp", f"phase {time.perf_counter() - t_phase:.2f} s; B1 launches (a) {launches_a}, "
+              f"(b) {launches_b}")
+    return launches_a + launches_b
+
+
+# ---------------------------------------------------------------------------
 def cuda_ms(fn, reps=5, warmup=1):
     """Median of ``reps`` CUDA-event timings of ``fn()``, after ``warmup``."""
     import torch
@@ -2928,10 +3372,14 @@ def main():
     archtrain_counts = phase_archtrain(device)
     for kid, name, _, _ in KERNEL_INFO:
         require(archtrain_counts[name] > 0, f"{kid} {name} was not launched on the archtrain path")
+    phase_longctx(device)
+    dp_launches = phase_dp(device)
+    require(dp_launches > 0, "B1 quant_dequant_2d was not launched on the dp path")
     # each kernel's launches on the paths that exercise it (B1: serve + train +
-    # arch + archtrain; B2: serve + train + cohort + arch + archtrain; B3:
+    # arch + archtrain + dp; B2: serve + train + cohort + arch + archtrain; B3:
     # serve + cohort + arch + archtrain)
     launches = {**counts, **{name: codec_counts[name] for _, name, _, _, _ in CODEC_INFO}}
+    launches["quant_dequant_2d"] += dp_launches
     for name in ("quant_dequant_2d", "quant_pack_2d"):
         launches[name] += train_counts[name]
     for name in ("quant_pack_2d", "unpack_dequant_2d"):

@@ -21,6 +21,8 @@ comes from one explicit ``torch.Generator``.  The client mean sums in
 ``distributed.group_sum``'s order, and ``h + lam * d`` stays two
 operations, so a round equals the JAX function run op by op bit for bit.
 This is plain torch, as the reference is plain jnp: it reaches no kernel.
+``efbv_sync_worker`` is one worker's sync of a model's gradient tree over a
+process group; under ``qsgd_kernel`` it runs kernel B1 once per leaf.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from repro_torch.core.compressors import (Compressor, lambda_star, nu_star,
                                          omega_ran_independent)
 from repro_torch.core.distributed import group_mean
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
 
 class EFBVState(NamedTuple):
@@ -107,12 +110,43 @@ def efbv_gd(x0: torch.Tensor, grad_fn: Callable, state: EFBVState, c: Compressor
     return x, state, trace
 
 
-def efbv_sync_worker(*args, **kwargs):
-    """The reference's per-worker EF-BV sync inside ``shard_map``.  One
-    process's simulation of every worker is ``core.distributed.efbv_sync``;
-    the per-worker form over ``torch.distributed`` belongs to the multi-GPU
-    slice."""
-    raise NotImplementedError(
-        "efbv_sync_worker (the per-worker form over a device mesh) is not ported "
-        "yet (ROADMAP.md Queue 1, item 8: Multi-GPU); core.distributed.efbv_sync "
-        "runs every worker's sync in one process")
+# ---------------------------------------------------------------------------
+# One worker's view over a process group (the reference's shard_map form):
+# h_i lives on the worker; h_bar is replicated (the same mean on every
+# worker keeps it consistent).
+# ---------------------------------------------------------------------------
+def efbv_sync_worker(grad_tree, h_tree, h_bar_tree, c: Compressor, lam: float,
+                     nu: float, group=None, noise=None,
+                     generator: Optional[torch.Generator] = None):
+    """Per-worker EF-BV sync over the ``torch.distributed`` process group
+    ``group`` (default: the world), each rank one worker.
+
+    grad_tree / h_tree: this worker's gradient and control variate (trees
+    of one structure); h_bar_tree: the replicated average control variate.
+    Per leaf, ``d_i = c((g - h) in f32)`` with this rank's draws
+    (``noise[li]`` for leaf li, or ``generator``); the mean over ranks is an
+    ``all_gather`` of every d_i, summed in rank order by ``group_mean``
+    (``group_sum``'s order, then the division), so every rank computes the
+    same mean as ``core.distributed.efbv_sync`` does over a stacked group
+    axis, bit for bit; an ``all_reduce`` would sum in the backend's order.
+    Returns (g_est_tree, new_h_tree, new_h_bar_tree), new tensors (the
+    inputs are not changed), each update the source's two operations."""
+    import torch.distributed as dist
+
+    leaves, treedef = tree_flatten(grad_tree)
+    h_leaves = tree_flatten(h_tree)[0]
+    hb_leaves = tree_flatten(h_bar_tree)[0]
+    world = dist.get_world_size(group)
+    g_est, new_h, new_hb = [], [], []
+    for li, (g, h, hb) in enumerate(zip(leaves, h_leaves, hb_leaves)):
+        d_i = c((g - h).float(), noise=None if noise is None else noise[li],
+                generator=generator).contiguous()
+        gathered = d_i.new_empty((world,) + tuple(d_i.shape))
+        dist.all_gather(list(gathered.unbind(0)), d_i, group=group)
+        d = group_mean(gathered)
+        del gathered
+        new_h.append(h + lam * d_i)
+        g_est.append(hb + nu * d)
+        new_hb.append(hb + lam * d)
+    return (tree_unflatten(treedef, g_est), tree_unflatten(treedef, new_h),
+            tree_unflatten(treedef, new_hb))

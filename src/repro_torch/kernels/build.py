@@ -39,7 +39,7 @@ NVCC_FLAGS = ARCH_FLAGS + (
 # C entry points: name -> argtypes (pointers and the stream as c_void_p)
 _P, _I64, _I32, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 _NM = (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _P)
-_WANDA = (_P,) * 8 + (_I64, _I64, _I32, _F, _F, _F, _F, _I32, _I64, _I64, _I64, _P)
+_WANDA = (_P,) * 8 + (_I64, _I64, _I32, _F, _F, _P, _P, _I32, _I64, _I64, _I64, _P)
 # resource reports (csrc/resources.cuh): (idx, d_in, out fields, name, name_len)
 _RES = (_I32, _I64, ctypes.POINTER(_I64), ctypes.c_char_p, _I32)
 RESOURCE_ENTRIES = {"quant.cu": "repro_quant_resources",

@@ -19,6 +19,8 @@
 //   wanda     |w| * xf
 //   ria       (|w| / rowsum + |w| / colsum) * xf
 //   symwanda  ((beta |w|) xf) / mu_in + (((1 - beta) |w|) yn) / mu_out
+// symwanda's mu_in and mu_out come by device pointer (the statistics stay on
+// the card; the host never reads them), loaded once by each thread.
 // xf is xnorm for wanda and symwanda and xnorm^alpha for ria: the wrapper
 // raises the (d_in,) vector to alpha with torch.pow, the same call as the
 // plain version, so the two see the same bits (torch.pow(x, 0.5) is sqrt).
@@ -238,7 +240,10 @@ struct Stats {
   const float* rowsum;   // (d_in,), ria
   const float* colsum;   // (d_out,), ria
   const float* ynorm;    // (d_out,), symwanda
-  float beta, one_minus_beta, mu_in, mu_out;
+  const float* mu_in_at;   // (), symwanda's normalizers, on the device: the
+  const float* mu_out_at;  // host never reads them back
+  float beta, one_minus_beta;
+  float mu_in, mu_out;   // *mu_in_at and *mu_out_at, read at the kernel's start
 };
 
 // the score of one weight; x = xf[r], rs = rowsum[r], cs = colsum[j], yn =
@@ -528,6 +533,11 @@ wanda_prune_kernel(const T* __restrict__ w, float* __restrict__ tau, Stats st,
                    T* __restrict__ out, T* __restrict__ mask, int64_t d_in,
                    int64_t d_out, int64_t k, int64_t rows, int64_t cols,
                    bool staged) {
+  if constexpr (kMode == kSymWanda) {
+    // once per thread, before any element (a broadcast load per warp)
+    st.mu_in = __ldg(st.mu_in_at);
+    st.mu_out = __ldg(st.mu_out_at);
+  }
   if constexpr (kSelect)
     mask_selecting<T, kMode>(w, tau, st, out, mask, d_in, d_out, k, rows, cols, staged);
   else
@@ -622,13 +632,16 @@ template <typename T>
 int wanda_prune(const T* w, const float* xf, float* tau, const float* rowsum,
                 const float* colsum, const float* ynorm, T* out, T* mask,
                 long long d_in, long long d_out, int mode, float beta,
-                float one_minus_beta, float mu_in, float mu_out, int select,
-                long long k, long long rows, long long cols, cudaStream_t stream) {
+                float one_minus_beta, const float* mu_in, const float* mu_out,
+                int select, long long k, long long rows, long long cols,
+                cudaStream_t stream) {
   if (d_in == 0 || d_out == 0) return 0;
   if (d_in < 0 || d_out < 0 || d_out % kVec) return static_cast<int>(cudaErrorInvalidValue);
   if (select && (rows < 1 || rows > d_in || cols < 0 || cols > d_out || k < 1 || k > rows))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Stats st{xf, rowsum, colsum, ynorm, beta, one_minus_beta, mu_in, mu_out};
+  if (mode == kSymWanda && (mu_in == nullptr || mu_out == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Stats st{xf, rowsum, colsum, ynorm, mu_in, mu_out, beta, one_minus_beta, 0.0f, 0.0f};
 #define REPRO_WANDA_LAUNCH(M)                                                    \
   return select ? launch_wanda<T, M, true>(w, tau, st, out, mask, d_in, d_out, k, \
                                            rows, cols, stream)                   \
@@ -680,8 +693,8 @@ int repro_wanda_prune_2d_f32(const float* w, const float* xf, float* tau,
                              const float* rowsum, const float* colsum,
                              const float* ynorm, float* out, float* mask,
                              long long d_in, long long d_out, int mode,
-                             float beta, float one_minus_beta, float mu_in,
-                             float mu_out, int select, long long k,
+                             float beta, float one_minus_beta, const float* mu_in,
+                             const float* mu_out, int select, long long k,
                              long long rows, long long cols, cudaStream_t stream) {
   return wanda_prune(w, xf, tau, rowsum, colsum, ynorm, out, mask, d_in, d_out,
                      mode, beta, one_minus_beta, mu_in, mu_out, select, k, rows,
@@ -693,8 +706,8 @@ int repro_wanda_prune_2d_bf16(const __nv_bfloat16* w, const float* xf,
                               const float* colsum, const float* ynorm,
                               __nv_bfloat16* out, __nv_bfloat16* mask,
                               long long d_in, long long d_out, int mode,
-                              float beta, float one_minus_beta, float mu_in,
-                              float mu_out, int select, long long k,
+                              float beta, float one_minus_beta, const float* mu_in,
+                              const float* mu_out, int select, long long k,
                               long long rows, long long cols, cudaStream_t stream) {
   return wanda_prune(w, xf, tau, rowsum, colsum, ynorm, out, mask, d_in, d_out,
                      mode, beta, one_minus_beta, mu_in, mu_out, select, k, rows,

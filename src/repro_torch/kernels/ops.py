@@ -195,7 +195,8 @@ def _statistics(w: torch.Tensor, X: torch.Tensor, mode: str, alpha: float,
                 beta: float) -> dict:
     """The unpadded statistics of a fused prune, as keyword arguments of
     ``wanda_prune_2d`` (without tau): input norms, RIA sums, symwanda's
-    output norms and normalizers."""
+    output norms and normalizers.  All stay on w's device (symwanda's
+    ``mu_in`` / ``mu_out`` as 0-d f32 tensors): nothing is read back."""
     xnorm = input_norms(X)
     kw = dict(xnorm=xnorm, mode=mode, alpha=alpha, beta=beta)
     if mode == "ria":
@@ -204,8 +205,8 @@ def _statistics(w: torch.Tensor, X: torch.Tensor, mode: str, alpha: float,
     elif mode == "symwanda":
         ynorm = input_norms(X @ w)
         aw = w.float().abs()
-        kw.update(ynorm=ynorm, mu_in=float((aw * xnorm[:, None]).mean()),
-                  mu_out=float((aw * ynorm[None, :]).mean()))
+        kw.update(ynorm=ynorm, mu_in=(aw * xnorm[:, None]).mean(),
+                  mu_out=(aw * ynorm[None, :]).mean())
     elif mode != "wanda":
         raise ValueError(mode)
     return kw

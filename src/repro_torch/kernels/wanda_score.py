@@ -17,7 +17,9 @@ found is returned beside the mask.  ``ops.prune_scored`` runs this mode.
 
 CUDA tensors run the kernel in ``csrc/prune.cu``; CPU tensors run the plain
 version in ``ref.py``.  The JAX kernel packs symwanda's two normalizers into
-a (1, 128) row; here they are the scalars ``mu_in`` and ``mu_out``.
+its rowsum / colsum operands as device scalars; here they are ``mu_in`` and
+``mu_out``, 0-d f32 tensors that the kernel reads by pointer, so the host
+never waits for them (a Python number is put on the card first).
 """
 from __future__ import annotations
 
@@ -36,12 +38,22 @@ def _vec(v, name: str, n: int, w: torch.Tensor) -> torch.Tensor:
     return v
 
 
+def _normalizer(v, name: str, w: torch.Tensor) -> torch.Tensor:
+    """Symwanda's ``mu_in`` / ``mu_out`` as the 0-d f32 tensor on w's device
+    whose pointer the kernel reads: a tensor is checked, a Python number is
+    rounded to f32 there."""
+    if not isinstance(v, torch.Tensor):
+        return torch.full((), v, dtype=torch.float32, device=w.device)
+    build.check_tensor(v, name, torch.float32, (), w.device, align=4)
+    return v
+
+
 def wanda_prune_2d(w: torch.Tensor, xnorm: torch.Tensor, tau, mode: str = "wanda",
                    alpha: float = 0.5, beta: float = 0.5, rowsum=None, colsum=None,
                    ynorm=None, mu_in=1.0, mu_out=1.0, k=None, rows=None, cols=None):
     """w (d_in, d_out) f32/bf16; xnorm (d_in,) f32; RIA: rowsum (d_in,),
-    colsum (d_out,); symwanda: ynorm (d_out,) and the scalar normalizers
-    mu_in, mu_out.
+    colsum (d_out,); symwanda: ynorm (d_out,) and the normalizers mu_in,
+    mu_out (0-d f32 tensors on w's device, or Python numbers).
 
     ``tau`` (d_out,) f32 -> (w * mask, mask), mask in w's dtype.
     ``tau=None`` -> (w * mask, mask, tau): the kernel takes tau_j as the k-th
@@ -68,7 +80,6 @@ def wanda_prune_2d(w: torch.Tensor, xnorm: torch.Tensor, tau, mode: str = "wanda
         _vec(colsum, "colsum", d_out, w)
     elif mode == "symwanda":
         _vec(ynorm, "ynorm", d_out, w)
-    mu_in, mu_out = float(mu_in), float(mu_out)      # f32 values, exact
     if w.device.type == "cpu":
         return ref.wanda_prune_ref(w, xnorm, tau, mode, alpha, beta, rowsum, colsum,
                                    ynorm, mu_in, mu_out, k, rows, cols)
@@ -76,13 +87,15 @@ def wanda_prune_2d(w: torch.Tensor, xnorm: torch.Tensor, tau, mode: str = "wanda
     build.check_tensor(w, "w", w.dtype, w.shape, align=16)   # 16-byte row vectors
     # ria's xnorm^alpha: the plain version's own torch.pow call, on this device
     xf = xnorm.pow(alpha) if mode == "ria" else xnorm
+    symwanda = mode == "symwanda"
     out, mask = torch.empty_like(w), torch.empty_like(w)
     if selecting:
         tau = torch.empty(d_out, dtype=torch.float32, device=w.device)
     build.launch(entry("wanda_prune_2d", w), w.device, w, xf, tau,
                  rowsum if mode == "ria" else None, colsum if mode == "ria" else None,
-                 ynorm if mode == "symwanda" else None, out, mask, d_in, d_out,
-                 MODES[mode], beta, 1.0 - beta, mu_in, mu_out, int(selecting),
+                 ynorm if symwanda else None, out, mask, d_in, d_out, MODES[mode],
+                 beta, 1.0 - beta, _normalizer(mu_in, "mu_in", w) if symwanda else None,
+                 _normalizer(mu_out, "mu_out", w) if symwanda else None, int(selecting),
                  k or 0, d_in if rows is None else rows, d_out if cols is None else cols)
     wanda_prune_2d.launches += 1
     if selecting:

@@ -67,7 +67,8 @@ HOT_ROOTS: Tuple[Tuple[str, str, Tuple[str, ...]], ...] = (
     ("repro_torch.core.scafflix", "flix_optimum", ()),
     ("repro_torch.core.symwanda", "r2_dsnot", ()),
     # models: the flash-attention scan bodies and the SSD associative scan
-    ("repro_torch.models.attention", "_attend", ()),
+    ("repro_torch.models.attention", "_flash_attention",
+     ("kind", "window", "chunk", "q_offset", "block_q", "block_k")),
     ("repro_torch.models.mamba", "_ssd_chunked", ()),
 )
 

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import _dense_init, init_rmsnorm, rmsnorm
+from repro_torch.sharding.context import constrain_named
 
 
 def mamba_dims(d_model: int, cfg) -> dict:
@@ -134,7 +135,9 @@ def mamba_forward(params, u, cfg, d_model: int, return_cache: bool = False):
     z, xBC_raw, dt = _split_proj(params, u, cfg, dims)
     xBC = _causal_conv(params, xBC_raw, cfg)
     x, B_, C_ = torch.split(xBC, [di, G * N, G * N], dim=-1)
-    x = x.reshape(Bsz, S, H, cfg.head_dim)
+    # optional SSD head sharding: keeps the intra-chunk tensors model-sharded
+    # over heads where a launcher installed the "ssd_x" spec
+    x = constrain_named("ssd_x", x.reshape(Bsz, S, H, cfg.head_dim))
     B_ = B_.reshape(Bsz, S, G, N)
     C_ = C_.reshape(Bsz, S, G, N)
     dt = F.softplus(dt.float() + params["dt_bias"])

@@ -10,8 +10,11 @@ batched matmul, and the combine sums each token's K contributions in k order
 in the model dtype, as the reference's scatter does: no atomics, so a run on
 the card repeats itself bit for bit.
 
-The expert-parallel paths of the reference (``moe_ffn_alltoall``,
-``moe_ffn_shardmap``) need a device mesh; here they raise.
+The dispatcher reads the MoE specs a launcher installed
+(``sharding.context.set_moe_specs``), as the reference's does; without any,
+the scatter path runs, its tensors passing through ``constrain_moe`` at the
+reference's points.  The expert-parallel paths (``moe_ffn_alltoall``,
+``moe_ffn_shardmap``) over a device mesh are not ported yet; they raise.
 """
 from __future__ import annotations
 
@@ -22,16 +25,20 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import _dense_init, init_mlp, mlp
+from repro_torch.sharding.context import constrain_moe, get_moe_specs
 
 MESH_TODO = ("expert-parallel MoE over a device mesh is not ported "
-             "(ROADMAP.md Queue 1, item 8: multi-GPU)")
+             "(ROADMAP.md Queue 1, item 8: multi-GPU, part 8d)")
 
 
 def moe_apply(params: dict, x: torch.Tensor, specs: Optional[dict] = None,
               **kw) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dispatcher: ``specs`` is what the reference's launcher installs for a
-    mesh (``{"impl": "alltoall" | "shardmap", "mesh": ..., ...}``); without
-    one, the single-device scatter path."""
+    """Dispatcher: ``specs`` (default: what a launcher installed with
+    ``sharding.context.set_moe_specs``, ``{"impl": "alltoall" | "shardmap",
+    "mesh": ..., ...}``) picks an expert-parallel path; without one, the
+    single-device scatter path."""
+    if specs is None:
+        specs = get_moe_specs()
     if specs and specs.get("impl") == "alltoall":
         return moe_ffn_alltoall(params, x, **kw)
     if specs and specs.get("impl") == "shardmap":
@@ -116,7 +123,7 @@ def moe_ffn(params: dict, x: torch.Tensor, *, num_experts: int, top_k: int,
     capacity to T so no assignment is dropped (decode)."""
     B, S, d = x.shape
     T, E, K = B * S, num_experts, top_k
-    xt = x.reshape(T, d)
+    xt = constrain_moe("tokens", x.reshape(T, d))
     r = route(params["router"], xt, E, K, capacity_factor, no_drop)
 
     # load-balance aux loss (Switch): E * sum_e frac_tokens_e * frac_prob_e
@@ -130,13 +137,15 @@ def moe_ffn(params: dict, x: torch.Tensor, *, num_experts: int, top_k: int,
     # each kept assignment owns its slot; drops all land on the trash row E*C
     buf = x.new_zeros((E * C + 1, d))
     buf[torch.where(r.keep, slot, E * C)] = xt[token_of]
-    out_buf = _expert_ffn(params, buf[:E * C].view(E, C, d), act, gated).reshape(E * C, d)
+    ebuf = constrain_moe("buf", buf[:E * C].view(E, C, d))
+    out_buf = constrain_moe("buf", _expert_ffn(params, ebuf, act, gated)).reshape(E * C, d)
 
-    gathered = out_buf[slot] * r.keep[:, None].to(x.dtype)          # (T*K, d)
+    gathered = constrain_moe("expanded", out_buf[slot] * r.keep[:, None].to(x.dtype))
     contrib = (gathered * r.gate_w.reshape(-1)[:, None].to(x.dtype)).view(T, K, d)
     combined = torch.zeros((T, d), dtype=x.dtype, device=x.device)
     for k in range(K):                  # token t's rows t*K .. t*K+K-1, in order
         combined = combined + contrib[:, k]
+    combined = constrain_moe("tokens", combined)
 
     if shared_expert:
         combined = combined + mlp(params["shared"], xt, act=act, gated=gated)

@@ -134,11 +134,11 @@ def init_params(seed: int, cfg: ModelConfig, device=None) -> dict:
 # Attention without a causal mask: cross-attention and the encoder
 # ---------------------------------------------------------------------------
 def _full_attention(q, k, v) -> torch.Tensor:
-    """Non-causal softmax attention, (B, Sq, H*hd): the port's ``_attend``
-    with a zero bias (the reference tiles the same function)."""
-    Sq, Sk = q.shape[1], k.shape[1]
-    bias = torch.zeros((Sq, Sk), dtype=torch.float32, device=q.device)
-    return attn_lib._attend(q, k, v, bias)
+    """Non-causal softmax attention, (B, Sq, H*hd), through the tiled
+    ``_flash_attention`` (kind "full"), as the reference's encoder and
+    cross-attention: no (Sq, Sk) score matrix at any length."""
+    B, Sq, H, hd = q.shape
+    return attn_lib._flash_attention(q, k, v, "full", 0, 0).reshape(B, Sq, H * hd)
 
 
 def _cross_attention(params, x, memory, cfg: ModelConfig) -> torch.Tensor:

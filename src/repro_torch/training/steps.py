@@ -42,6 +42,7 @@ from repro_torch.obs import trace as obs_trace
 from repro_torch.optim.optimizers import (OptState, clip_scale, make_optimizer,
                                           tree_norm)
 from repro_torch.optim.schedules import cosine_schedule
+from repro_torch.sharding.context import constrain_grads
 from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
 
@@ -50,12 +51,6 @@ class TrainState(NamedTuple):
     opt_state: object
     sync_state: object       # dist.SyncState / TreeSyncState, or None
     generator: torch.Generator
-
-
-def constrain_grads(grads):
-    """The JAX package's sharding hint on gradients: the identity here (one
-    card holds every group; the multi-GPU slice will place them)."""
-    return grads
 
 
 def _make_optimizer(tc: TrainConfig):

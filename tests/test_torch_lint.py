@@ -63,6 +63,26 @@ FIXTURES = {
         def cold(x):
             return x.item()                      # not reachable: no finding
         ''',
+    "bad_rl001_expr.py": '''
+        """RL001: casts of tensor expressions; a tensor's metadata is not one."""
+        import torch
+
+
+        def statistics(w: torch.Tensor, x: torch.Tensor, scale: float):
+            aw = w.float().abs()
+            mu = float((aw * x[:, None]).mean())    # RL001: float(expr)
+            big = bool(torch.any(aw > scale))       # RL001: bool(torch.*(tensor))
+            rows = int(w.shape[0])                  # metadata: no finding
+            n = int(aw.numel()) + int(x.size(0))    # metadata: no finding
+            return mu, big, rows, n, float(scale)   # a float argument: no finding
+
+
+        def make_stats_step():
+            def step(w, x):
+                return statistics(w, x, 0.5)
+
+            return step
+        ''',
     "bad_rl002.py": '''
         """RL002: global RNG state."""
         import numpy as np
@@ -199,6 +219,17 @@ def test_rl001_roots_and_edges(fixture_dir):
                   "Probe.forward"):
         assert f"`{where}`" in text, where
     assert "`cold`" not in text
+
+
+def test_rl001_casts_of_tensor_expressions(fixture_dir):
+    """``float`` / ``bool`` of an expression over a reached helper's tensor
+    arguments are findings; ``int`` of shapes and counts, and ``float`` of a
+    float argument, are not (the narrowing to tensor values)."""
+    rc, findings = run_lint(fixture_dir / "bad_rl001_expr.py")
+    assert rc == 1
+    assert [(f["rule"], f["line"]) for f in findings] == [("RL001", 7), ("RL001", 8)]
+    assert "float((aw * x[:, None]).mean())" in findings[0]["message"]
+    assert "`statistics`" in findings[1]["message"]
 
 
 def test_rl005_exempts_metadata_and_none_checks(fixture_dir):

@@ -1,10 +1,9 @@
 """Port model (dense decoder, prefill + ring-cache decode) against the JAX
 package, from the same parameters (``params_from_jax``).
 
-Tolerance: logits within atol 2e-5 in f32 (the port's attention is one
-masked softmax where JAX tiles it flash-style, and matmuls sum in another
-order; the observed gap is ~1e-6 on logits of magnitude ~1); greedy tokens
-must be equal.  The prompt (24) is longer than the reduced SWA window (16),
+Tolerance: logits within atol 2e-5 in f32 (both packages tile the
+attention flash-style, but their matmuls sum in another order; the observed
+gap is ~1e-6 on logits of magnitude ~1); greedy tokens must be equal.  The prompt (24) is longer than the reduced SWA window (16),
 so the decode ring wraps.
 """
 import dataclasses

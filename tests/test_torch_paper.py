@@ -170,11 +170,6 @@ def test_efbv_round_bitwise_op_by_op(jx, mode, comp):
         assert _bits(tst.h.numpy(), jst.h) and _bits(tst.h_bar.numpy(), jst.h_bar)
 
 
-def test_efbv_sync_worker_waits_for_multi_gpu():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tef.efbv_sync_worker()
-
-
 @pytest.mark.parametrize("p", [0.2, 0.9])
 def test_scafflix_round_bitwise_op_by_op(jx, p):
     jax, jnp, jsx = jx["jax"], jx["jnp"], jx["sx"]

@@ -393,6 +393,27 @@ def test_ops_prune_scored_matches_jax_ops(jx, shape, mode):
     assert (np.abs(s - tau)[differ] <= 1e-6 * np.broadcast_to(tau, s.shape)[differ]).all()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_symwanda_normalizers_stay_on_the_device(dtype):
+    """``ops._statistics`` keeps symwanda's mu_in / mu_out as 0-d f32
+    tensors (no host read); B8 on them gives, bit for bit, the masks the
+    Python floats of the same values gave, in both modes."""
+    W, X = _layer((300, 129), seed=16)
+    tW, tX = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in (W, X))
+    kw = ops._statistics(tW, tX, "symwanda", 0.5, 0.5)
+    for name in ("mu_in", "mu_out"):
+        assert isinstance(kw[name], torch.Tensor)
+        assert kw[name].shape == () and kw[name].dtype == torch.float32
+    wp, pk, (r, c) = ops._padded(tW, kw)
+    as_floats = dict(pk, mu_in=float(pk["mu_in"]), mu_out=float(pk["mu_out"]))
+    k = ops.keep_count(r, 0.5)
+    got = wanda_score.wanda_prune_2d(wp, tau=None, k=k, rows=r, cols=c, **pk)
+    want = wanda_score.wanda_prune_2d(wp, tau=None, k=k, rows=r, cols=c, **as_floats)
+    assert all(_bits_equal(g, w) for g, w in zip(got, want))
+    given = wanda_score.wanda_prune_2d(wp, tau=got[2], **pk)
+    assert all(_bits_equal(g, w) for g, w in zip(given, want[:2]))
+
+
 def test_ops_prune_scored_keeps_bf16():
     W, X = _layer((132, 70), seed=5)
     tW = torch.from_numpy(W).bfloat16()
