@@ -188,6 +188,24 @@ the script exits nonzero without printing a result:
            rank its own batch; every rank's (g_est, h_i, h_bar) equal bit for
            bit to the per-leaf efbv_sync with G = 4 on every rank's gathered
            grads and replayed draws.  Sync ms per rank, probed and unprobed
+  dryrun   the dry-run (repro_torch.launch.dryrun: the step traced under
+           FakeTensorMode on DTensors over a fake process group, nothing
+           allocated).  (a) In a subprocess of its own (this process holds
+           NCCL and gloo groups), three full-width cells on the production
+           meshes: h2o-danube-1.8b x train_4k x (16, 16) dense,
+           qwen1.5-110b x decode_32k x (2, 16, 16) (FSDP serving) and
+           mamba2-2.7b x long_500k x (16, 16); each must be ok, with its
+           trace seconds, per-rank argument and peak bytes and collective
+           counts printed.  (b) The memory anchor on the card: whole
+           h2o-danube-1.8b, a dense train step at (1, 4096), remat full, and
+           a prefill at (1, 8192), each first traced by the dry-run's
+           one-device step under FakeTensorMode (the estimate), then run
+           for real from the same state after reset_peak_memory_stats: the
+           argument bytes must be equal and max_memory_allocated over the
+           estimate within [0.8, 1.25].  (c) python -m repro_torch.launch.train
+           --arch h2o-danube-1.8b --dry-run --shape decode_32k --multi-pod
+           (a subprocess) must write its record with status ok.  (a) and
+           (c) run while (b) does
   timing   B1-B3 and B6 (beside B2) at the serve path's shape, B4/B5 at the
            codec path's d, and B7/B8 (both modes, three score modes) at one
            full-width w_in (2560 x 6912 bf16) on the card (CUDA events,
@@ -316,6 +334,13 @@ LONG_TRAIN_SEQ, LONG_CHECK_SEQ, LONG_ATOL = 16384, 2048, 2e-5
 # the ranks' time limit; the seeds of the batches, h_i, h_bar and the draws
 DP_SEQ, DP_RANKS, DP_LAYERS, DP_JOIN_S = 64, 4, 4, 600
 DP_BATCH_SEED, DP_H_SEED, DP_HBAR_SEED, DP_DRAW_SEED = 10, 200, 300, 1000
+# the dry-run's full-width cells on the fake backend: (arch, shape, multi-pod)
+DRYRUN_CELLS = (("h2o-danube-1.8b", "train_4k", False), ("qwen1.5-110b", "decode_32k", True),
+                ("mamba2-2.7b", "long_500k", False))
+DRYRUN_CLI = ("h2o-danube-1.8b", "decode_32k")     # through launch.train --dry-run --multi-pod
+ANCHOR_RUNS = (("train", 4096), ("prefill", 8192))  # (kind, seq) at batch 1, remat full
+ANCHOR_RANGE = (0.8, 1.25)    # max_memory_allocated / the dry-run's estimate
+DRYRUN_JOIN_S = 600
 
 
 class SmokeFailure(RuntimeError):
@@ -3046,6 +3071,149 @@ def phase_dp(device, layers_b=DP_LAYERS, world=DP_RANKS, join_s=DP_JOIN_S, reduc
 
 
 # ---------------------------------------------------------------------------
+DRYRUN_SCRIPT = """
+import json, sys
+from repro_torch.launch import dryrun as dr
+out = []
+for arch, shape, mp in json.loads(sys.argv[1]):
+    rec = dr.run_one(arch, shape, mp)
+    rec.pop("traceback", None)
+    out.append(rec)
+print(json.dumps(out))
+"""
+
+
+def dryrun_subprocesses(out_dir):
+    """(a) and (c) of the dryrun phase, started: -> the two Popens."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    cells = subprocess.Popen([sys.executable, "-c", DRYRUN_SCRIPT, json.dumps(DRYRUN_CELLS)],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                             env=env, cwd=out_dir)
+    arch, shape = DRYRUN_CLI
+    cli = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+                            "--dry-run", "--shape", shape, "--multi-pod"],
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                           env=env, cwd=out_dir)
+    return cells, cli
+
+
+def dryrun_record_line(rec):
+    mem = rec["memory"]
+    return (f"{rec['arch']} x {rec['shape']} x {rec['mesh']} ({rec['sync']}, fake "
+            f"{rec['fake_device']} tensors): {rec['status']}, trace {rec['trace_s']} s "
+            f"(host); per rank: arguments {mem['argument_size_in_bytes']} B, peak "
+            f"{mem['peak_bytes']} B ({mem['peak_bytes'] / 2**30:.2f} GiB), output "
+            f"{mem['output_size_in_bytes']} B; collectives {json.dumps(rec['collectives'])}")
+
+
+def check_dryrun_cells(proc, cli, out_dir):
+    """Wait for (a) and (c); every cell and the CLI's record must be ok."""
+    outs = {}
+    for name, p in (("(a)", proc), ("(c)", cli)):
+        try:
+            out, err = p.communicate(timeout=DRYRUN_JOIN_S)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+            raise SmokeFailure(f"dryrun {name}: not done in {DRYRUN_JOIN_S} s")
+        require(p.returncode == 0, f"dryrun {name} exited {p.returncode}: {err[-3000:]}")
+        outs[name] = out
+    for rec in json.loads(outs["(a)"].strip().splitlines()[-1]):
+        require(rec["status"] == "ok", f"dryrun (a) {rec['arch']} x {rec['shape']}: "
+                                       f"{rec['status']}: {rec.get('error') or rec.get('reason')}")
+        log("dryrun", "(a) " + dryrun_record_line(rec))
+    arch, shape = DRYRUN_CLI
+    path = os.path.join(out_dir, "results", "dryrun", f"{arch}__{shape}__mp__dense.json")
+    require(os.path.exists(path), f"dryrun (c): launch.train --dry-run wrote no {path}")
+    with open(path) as f:
+        rec = json.load(f)
+    require(rec["status"] == "ok", f"dryrun (c): {rec['status']}: {rec.get('error')}")
+    log("dryrun", "(c) launch.train --dry-run --multi-pod: " + dryrun_record_line(rec))
+
+
+def anchor_fill(step, cfg, device):
+    """Random params (seed 0) and tokens, zero moments, in place."""
+    import torch
+    from repro_torch.launch import dryrun as dr
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = step.inputs.get("state", step.inputs)
+    for t in dr.local_tensors(state["params"]):
+        t.normal_(0.0, 0.02, generator=gen)
+    for t in dr.local_tensors(step.inputs["batch"]):
+        t.random_(0, cfg.vocab_size, generator=gen)
+    for t in dr.local_tensors({k: state[k] for k in ("mu", "nu") if k in state}):
+        t.zero_()
+
+
+def dryrun_anchor(device):
+    """(b): the dry-run's one-device estimate of whole h2o-danube-1.8b's
+    dense train step and prefill against the same step on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun as dr
+
+    if device.type != "cuda":
+        raise SmokeFailure("dryrun (b): the memory anchor runs on the card")
+    cfg = get_config(ARCH)
+    for kind, seq in ANCHOR_RUNS:
+        shape = InputShape(kind, seq, 1, kind)
+        est = dr.trace_step(lambda: dr.build_single_step(cfg, shape, "full", "cuda"))["memory"]
+        free_cached(device)
+        base = torch.cuda.memory_allocated(device)
+        step = dr.build_single_step(cfg, shape, "full", device)
+        # the real inputs' bytes, counted apart from the dry-run's own count:
+        # each storage once, and the caching allocator's growth (blocks of
+        # 512 B) from building them
+        storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                    for t in dr.local_tensors(step.inputs)}
+        args = sum(storages.values())
+        grown = torch.cuda.memory_allocated(device) - base
+        blocks = sum(-(-n // 512) * 512 for n in storages.values())
+        anchor_fill(step, cfg, device)
+        peak_reset(device)
+        t0 = time.perf_counter()
+        out = step.run()
+        torch.cuda.synchronize(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        real = torch.cuda.max_memory_allocated(device) - base
+        del step, out
+        free_cached(device)
+        require(args == est["argument_size_in_bytes"] and grown == blocks,
+                f"dryrun (b) {kind}: argument bytes {args} on the card ({len(storages)} "
+                f"storages, the allocator grew {grown} B for {blocks} B of blocks), "
+                f"{est['argument_size_in_bytes']} estimated")
+        ratio = real / est["peak_bytes"]
+        log("dryrun", f"(b) {ARCH} whole, {kind} at (1, {seq}), remat full: arguments "
+                      f"{args} B in {len(storages)} storages == estimate (the allocator "
+                      f"grew {grown} B == their 512 B blocks); peak max_memory_allocated {real} B "
+                      f"({real / 2**30:.2f} GiB) vs the dry-run's {est['peak_bytes']} B "
+                      f"({est['peak_bytes'] / 2**30:.2f} GiB): ratio {ratio:.4f} (allowed "
+                      f"{ANCHOR_RANGE[0]}-{ANCHOR_RANGE[1]}); the real step {ms:.2f} ms")
+        require(ANCHOR_RANGE[0] <= ratio <= ANCHOR_RANGE[1],
+                f"dryrun (b) {kind}: the card's peak is {ratio:.4f} x the estimate")
+
+
+def phase_dryrun(device):
+    """The dry-run (ROADMAP Queue 1, item 8b): (a) and (c) in subprocesses
+    while (b) runs on the card in this process; no kernel of the repo runs
+    (the dry-run's B1 is its registered fake)."""
+    t_phase = time.perf_counter()
+    out_dir = tempfile.mkdtemp()
+    procs = dryrun_subprocesses(out_dir)
+    try:
+        dryrun_anchor(device)
+        check_dryrun_cells(*procs, out_dir)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(out_dir)
+    log("dryrun", f"phase {time.perf_counter() - t_phase:.2f} s")
+
+
+# ---------------------------------------------------------------------------
 def cuda_ms(fn, reps=5, warmup=1):
     """Median of ``reps`` CUDA-event timings of ``fn()``, after ``warmup``."""
     import torch
@@ -3092,6 +3260,20 @@ def phase_timing(rows, device, launches):
     for name, (kern, plain, lib) in calls.items():
         results[name] = (cuda_ms(kern), cuda_ms(plain, reps=3), None)
     b2_again = cuda_ms(calls["quant_pack_2d"][0])
+    # B1's wrapper launches directly; the repro::quant_dequant_2d op (the
+    # dry-run's route for fake tensors) launches the same kernel through
+    # torch's dispatcher: the op timed between two direct timings, at this
+    # shape and at the train phase's 65536-row chunk
+    for r in (rows, 65536):
+        xs, us = x[:r], u[:r]
+        direct = lambda: quant8.quant_dequant_2d(xs, us)          # noqa: E731
+        op = lambda: quant8._quant_dequant_op(xs, us, 8)          # noqa: E731
+        ab = [cuda_ms(f, reps=21) for f in (direct, op, op, direct)]
+        if not torch.equal(direct(), op()):
+            raise AssertionError("B1 through the op != B1 launched directly")
+        log("timing", f"B1 ({r}x512) through the repro::quant_dequant_2d op: "
+                      f"{ab[1]:.4f}, {ab[2]:.4f} ms between direct launches "
+                      f"{ab[0]:.4f}, {ab[3]:.4f} ms (CUDA events, medians of 21)")
     q, s = bitpack.quant_pack_2d(x, u)
     del x, u
     gc.collect()
@@ -3375,6 +3557,7 @@ def main():
     phase_longctx(device)
     dp_launches = phase_dp(device)
     require(dp_launches > 0, "B1 quant_dequant_2d was not launched on the dp path")
+    phase_dryrun(device)
     # each kernel's launches on the paths that exercise it (B1: serve + train +
     # arch + archtrain + dp; B2: serve + train + cohort + arch + archtrain; B3:
     # serve + cohort + arch + archtrain)

@@ -4,7 +4,8 @@ A copy of ``repro/configs/base.py``: ``ModelConfig`` with
 ``layer_kinds``, ``padded_vocab``, ``param_count``, ``active_param_count``
 and ``reduced()``, the MoE/Mamba sub-configs its fields name, the training
 knobs ``LevelConfig``/``SyncConfig``/``TrainConfig`` (same fields, same
-defaults), and ``register``/``get_config``.
+defaults), the dry-run's ``InputShape`` table ``INPUT_SHAPES``, and
+``register``/``get_config``.
 """
 from __future__ import annotations
 
@@ -175,6 +176,25 @@ class ModelConfig:
             vision_tokens=min(self.vision_tokens, 4) if self.vision_tokens else 0,
             dtype="float32",
         )
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned): the dry-run's (arch x shape) table
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)

@@ -150,3 +150,29 @@ def efbv_sync_worker(grad_tree, h_tree, h_bar_tree, c: Compressor, lam: float,
         new_hb.append(hb + lam * d)
     return (tree_unflatten(treedef, g_est), tree_unflatten(treedef, new_h),
             tree_unflatten(treedef, new_hb))
+
+
+def param_sync_worker(param_tree, h_bar_tree, c: Compressor, lam: float, group=None,
+                      noise=None, generator: Optional[torch.Generator] = None):
+    """Per-worker form of one round of ``core.distributed.hier_param_sync``
+    over the process group ``group``, each rank one replica: per leaf,
+    ``h_bar += lam * mean_i C(p_i - h_bar)`` (the mean an ``all_gather``
+    summed in rank order, as ``efbv_sync_worker``'s) and the replica adopts
+    ``h_bar`` (``param_tree`` is written in place).  Returns the new h_bar
+    tree."""
+    import torch.distributed as dist
+
+    leaves, treedef = tree_flatten(param_tree)
+    world = dist.get_world_size(group)
+    new_hb = []
+    for li, (p, hb) in enumerate(zip(leaves, tree_flatten(h_bar_tree)[0])):
+        d_i = c(p.float() - hb, noise=None if noise is None else noise[li],
+                generator=generator).contiguous()
+        gathered = d_i.new_empty((world,) + tuple(d_i.shape))
+        dist.all_gather(list(gathered.unbind(0)), d_i, group=group)
+        hb = hb + lam * group_mean(gathered)
+        del gathered
+        p.copy_(hb.to(p.dtype))
+        new_hb.append(hb)
+    return tree_unflatten(treedef, new_hb)
+

@@ -24,6 +24,7 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -154,6 +155,11 @@ def load() -> ctypes.CDLL:
 def launch(entry: str, device: torch.device, *args) -> None:
     """Call C entry ``entry`` with ``args`` (tensors become their data
     pointers) on ``device``'s current stream; raise on a nonzero error."""
+    fake = [a for a in args if isinstance(a, torch.Tensor) and is_fake(a)]
+    if fake:
+        raise NotImplementedError(
+            f"{entry}: a fake tensor reached the launch (a dry-run under "
+            "FakeTensorMode); this kernel has no registered fake op")
     lib = load()
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(device):
@@ -192,8 +198,13 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-    if t.device.type == "cuda" and t.data_ptr() % align:
+    if t.device.type == "cuda" and not is_fake(t) and t.data_ptr() % align:
         raise ValueError(f"{name}: data pointer not {align}-byte aligned")
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """A ``FakeTensorMode`` tensor: shape and dtype, no storage."""
+    return isinstance(t, FakeTensor)
 
 
 def require_cuda(t: torch.Tensor) -> None:

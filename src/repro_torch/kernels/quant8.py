@@ -28,16 +28,38 @@ def check_tiles(x2d: torch.Tensor, noise2d: torch.Tensor) -> None:
 
 def quant_dequant_2d(x2d: torch.Tensor, noise2d: torch.Tensor,
                      bits: int = 8) -> torch.Tensor:
-    """x2d, noise2d: (rows, QBLOCK) f32, rows % TILE_ROWS == 0 -> f32."""
+    """x2d, noise2d: (rows, QBLOCK) f32, rows % TILE_ROWS == 0 -> f32.
+
+    A CPU tensor runs the plain version, a card tensor the kernel.  A fake
+    tensor (``FakeTensorMode``: the dry-run's stand-in for a card tensor)
+    goes through the ``repro::quant_dequant_2d`` op, whose registered fake
+    gives the output's shape and allocation; the card path launches
+    directly, without the op's dispatch."""
     check_tiles(x2d, noise2d)
+    if build.is_fake(x2d):
+        return _quant_dequant_op(x2d, noise2d, bits)
     if x2d.device.type == "cpu":
         return ref.quant_dequant_ref(x2d, noise2d, bits)
     build.require_cuda(x2d)
+    return _launch(x2d, noise2d, bits)
+
+
+def _launch(x2d: torch.Tensor, noise2d: torch.Tensor, bits: int) -> torch.Tensor:
     out = torch.empty_like(x2d)
     build.launch("repro_quant_dequant_2d", x2d.device, x2d, noise2d, out,
                  x2d.shape[0], ref.levels(bits))
     quant_dequant_2d.launches += 1
     return out
+
+
+@torch.library.custom_op("repro::quant_dequant_2d", mutates_args=(), device_types="cuda")
+def _quant_dequant_op(x2d: torch.Tensor, noise2d: torch.Tensor, bits: int) -> torch.Tensor:
+    return _launch(x2d, noise2d, bits)
+
+
+@_quant_dequant_op.register_fake
+def _(x2d, noise2d, bits):
+    return torch.empty_like(x2d)
 
 
 quant_dequant_2d.launches = 0

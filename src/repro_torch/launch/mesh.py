@@ -15,13 +15,15 @@ def _device_type() -> str:
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False, device_type=None):
     """(16, 16) ("data", "model"), or (2, 16, 16) ("pod", "data", "model")
-    with ``multi_pod``, over the current process group."""
+    with ``multi_pod``, over the current process group; ``device_type``
+    defaults to the group's (the dry-run's fake group takes the device type
+    of its fake tensors)."""
     from torch.distributed.device_mesh import init_device_mesh
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return init_device_mesh(_device_type(), shape, mesh_dim_names=axes)
+    return init_device_mesh(device_type or _device_type(), shape, mesh_dim_names=axes)
 
 
 def make_host_mesh(model: int = 1):

@@ -8,27 +8,32 @@
 
 Weights are random, from the config's seed; tokens come from
 ``SyntheticLMDataset`` (seed 0), batches from ``lm_batch_iterator`` (seed 1),
-as the JAX launcher feeds them.  ``--dry-run`` (lower and compile on a
-multi-pod mesh) and the flags that only feed it (``--shape``,
-``--multi-pod``) belong to the multi-GPU slice and raise.
+as the JAX launcher feeds them.  ``--dry-run`` hands the process over to
+``repro_torch.launch.dryrun`` for the arch, ``--shape`` (default
+``train_4k``), the mesh (``--multi-pod``: the (2, 16, 16) one), ``--sync``
+and ``--compressor``, as the reference does: the dry-run owns its
+process's (fake) process group from the first import.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \
+      --dry-run --shape decode_32k --multi-pod       # writes results/dryrun/
 """
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
-    ap.add_argument("--shape", default=None,
-                    help="input shape for --dry-run (not ported)")
+    ap.add_argument("--shape", default="train_4k", help="input shape for --dry-run")
     ap.add_argument("--sync", default="dense",
                     choices=["dense", "efbv", "ef21", "diana", "hier", "local"])
     ap.add_argument("--compressor", default="qsgd")
     ap.add_argument("--dry-run", action="store_true",
-                    help="lower+compile on the production mesh (not ported)")
-    ap.add_argument("--multi-pod", action="store_true",
-                    help="mesh for --dry-run (not ported)")
+                    help="trace the step on the production mesh instead of running")
+    ap.add_argument("--multi-pod", action="store_true", help="the mesh for --dry-run")
     ap.add_argument("--reduced", action="store_true",
                     help="train the reduced config")
     ap.add_argument("--steps", type=int, default=100)
@@ -39,13 +44,13 @@ def main(argv=None):
                     help="torch device; default: the CUDA card")
     args = ap.parse_args(argv)
 
-    given = [flag for flag, on in (("--dry-run", args.dry_run),
-                                   ("--multi-pod", args.multi_pod),
-                                   ("--shape", args.shape is not None)) if on]
-    if given:
-        raise NotImplementedError(
-            f"{', '.join(given)}: lowering the step on a multi-pod mesh is not "
-            "ported yet (ROADMAP.md Queue 1, item 8: Multi-GPU)")
+    if args.dry_run:
+        os.execv(sys.executable, [
+            sys.executable, "-m", "repro_torch.launch.dryrun",
+            "--arch", args.arch, "--shape", args.shape,
+            "--multi-pod", "multi" if args.multi_pod else "single",
+            "--sync", args.sync, "--compressor", args.compressor,
+        ])
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import SyncConfig, TrainConfig

@@ -24,7 +24,10 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _dense_init, apply_rope, l2norm
+from repro_torch.models.layers import (_dense_init, apply_rope, features_whole, l2norm,
+                                       project_out, whole_grad)
+from repro_torch.sharding import layout
+from repro_torch.sharding.layout import AnyDTensor, shard_start
 
 NEG_INF = -1e30
 
@@ -45,18 +48,41 @@ def init_attention(gen, d_model: int, num_heads: int, num_kv_heads: int,
 def _project_qkv(params, x, num_heads, num_kv_heads, head_dim, qk_norm,
                  use_rope, positions, rope_theta):
     B, S, _ = x.shape
+    x = features_whole(x)
     q, k, v = x @ params["wq"], x @ params["wk"], x @ params["wv"]
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(B, S, num_heads, head_dim)
-    k = k.reshape(B, S, num_kv_heads, head_dim)
-    v = v.reshape(B, S, num_kv_heads, head_dim)
+    q = split_heads(q, num_heads, head_dim)
+    k = split_heads(k, num_kv_heads, head_dim)
+    v = split_heads(v, num_kv_heads, head_dim)
     if qk_norm:
         q, k = l2norm(q), l2norm(k)
     if use_rope:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
     return q, k, v
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(B, S, n, hd) -> (B, S, n*hd).  On a DTensor whose heads are not
+    sharded the result's gradient comes back whole over its feature dim:
+    the row-parallel product that follows would shard it across head
+    boundaries, which the view back to heads cannot split."""
+    out = t.reshape(t.shape[0], t.shape[1], -1)
+    if isinstance(t, AnyDTensor) and not any(p.is_shard(2) for p in t.placements):
+        out = whole_grad(out)
+    return out
+
+
+def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n*hd) -> (B, S, n, hd).  A DTensor whose last dim is sharded
+    over more ranks than ``n`` heads divide over is gathered first."""
+    if isinstance(t, AnyDTensor):
+        from torch.distributed.tensor import Replicate
+        mesh = t.device_mesh
+        t = t.redistribute(mesh, [Replicate() if p.is_shard(t.ndim - 1) and n % mesh.size(i)
+                                  else p for i, p in enumerate(t.placements)])
+    return t.reshape(t.shape[0], t.shape[1], n, hd)
 
 
 def _block_mask(q_idx, k_idx, kind: str, window: int, chunk: int) -> torch.Tensor:
@@ -333,8 +359,52 @@ def _flash_attention(q, k, v, kind: str, window: int, chunk: int,
     denom, accum) per query in f32; query i sits at position q_offset + i,
     key j at position j; ragged lengths are zero-padded to whole tiles and
     padded keys masked.  Transient memory is one (B, bq, H, bk) f32 score
-    tile; the backward (``_FlashAttention``) keeps O(S) per layer."""
+    tile; the backward (``_FlashAttention``) keeps O(S) per layer.
+
+    On DTensors (a launcher's mesh) the tile loop runs on each rank's local
+    shards through ``local_map`` (``_sharded_flash``), as the reference's
+    partitioned program does."""
+    if isinstance(q, AnyDTensor):
+        return _sharded_flash(q, k, v, kind, window, chunk, q_offset, block_q, block_k)
     return _FlashAttention.apply(q, k, v, kind, window, chunk, q_offset, block_q, block_k)
+
+
+def _sharded_flash(q, k, v, kind, window, chunk, q_offset, block_q, block_k):
+    """``_flash_attention`` of DTensors: batch sharded over the mesh's data
+    axes and heads over the tensor-parallel axis wherever the dims divide
+    (``sharding.layout``), the tiles of each rank's shards computed
+    locally.  Where the q heads divide over that axis but the kv heads do
+    not, k and v stay whole over it and each rank takes the kv head of each
+    of its q heads (their gradients are then partial sums over it)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
+    q_sh = layout.divides(H, layout.MODEL, mesh)
+    kv_sh = layout.divides(KV, layout.MODEL, mesh)
+    qpl = layout.local_placements(mesh, B, model_dim=2 if q_sh else None)
+    pick = None
+    if kv_sh or not q_sh:
+        kvpl = kv_grad = layout.local_placements(mesh, B, model_dim=2 if kv_sh and q_sh
+                                                 else None)
+    else:
+        kvpl = layout.local_placements(mesh, B)
+        kv_grad = layout.local_placements(mesh, B, partial_model=True)
+        h0 = shard_start(mesh, qpl, 2, H)
+        pick = lambda n, dev: (torch.arange(h0, h0 + n, device=dev)  # noqa: E731
+                               // (H // KV))
+
+    def local(ql, kl, vl):
+        if pick is not None:
+            heads = pick(ql.shape[2], ql.device)
+            kl, vl = kl.index_select(2, heads), vl.index_select(2, heads)
+        return _FlashAttention.apply(ql, kl, vl, kind, window, chunk, q_offset, block_q,
+                                     block_k)
+
+    return local_map(local, out_placements=qpl, in_placements=(qpl, kvpl, kvpl),
+                     in_grad_placements=(qpl, kv_grad, kv_grad), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
 
 
 def attention_prefill(params, x, *, cfg_attn: dict):
@@ -346,7 +416,7 @@ def attention_prefill(params, x, *, cfg_attn: dict):
                            cfg_attn["head_dim"], cfg_attn["qk_norm"], cfg_attn["use_rope"],
                            positions, cfg_attn["rope_theta"])
     out = _flash_attention(q, k, v, cfg_attn["kind"], cfg_attn["window"], cfg_attn["chunk"])
-    out = out.reshape(B, S, -1) @ params["wo"]
+    out = project_out(merge_heads(out), params["wo"])
     return out, {"k": k, "v": v}
 
 
@@ -396,9 +466,79 @@ def attention_decode(params, x, cache: dict, pos: int, *, cfg_attn: dict,
     k, v = cache["k"], cache["v"]
     Sc = k.shape[1]
     slot = pos % Sc
-    k[:, slot] = k_new[:, 0]
-    v[:, slot] = v_new[:, 0]
     if bias is None:
         bias = decode_bias(cfg_attn, Sc, pos, x.device)
+    if isinstance(k, AnyDTensor):
+        _write_slot(k, slot, k_new[:, 0])
+        _write_slot(v, slot, v_new[:, 0])
+        return _sharded_attend(q, k, v, bias) @ params["wo"], cache
+    k[:, slot] = k_new[:, 0]
+    v[:, slot] = v_new[:, 0]
     out = _attend(q, k, v, bias[None, :]) @ params["wo"]
     return out, cache
+
+
+def _cache_placements(cache):
+    """(the cache's placements with any partial resolved, a (B, ...) tensor's
+    placements beside it: its batch sharding, the rest replicated)."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = [Replicate() if p.is_partial() else p for p in cache.placements]
+    return pl, [Shard(0) if p.is_shard(0) else Replicate() for p in pl]
+
+
+def _write_slot(cache, slot: int, new) -> None:
+    """``cache[:, slot] = new`` on a DTensor cache (B, Sc, KV, hd) whose slot
+    axis may be sharded: the rank that holds the slot writes it, in place."""
+    from torch.distributed.tensor.experimental import local_map
+
+    pl, bpl = _cache_placements(cache)
+    start = shard_start(cache.device_mesh, pl, 1, cache.shape[1])
+
+    def local(c, n):
+        if start <= slot < start + c.shape[1]:
+            c[:, slot - start] = n
+        return c
+
+    local_map(local, out_placements=pl, in_placements=(pl, bpl),
+              device_mesh=cache.device_mesh, redistribute_inputs=True)(cache, new)
+
+
+def _sharded_attend(q, k, v, bias) -> torch.Tensor:
+    """``_attend`` of a DTensor cache whose slot axis may be sharded (the
+    rules shard it over "model"), flash-decoding style: each rank scores its
+    slots (its part of ``bias``), the per-row maxima meet in a max
+    all-reduce, and the rescaled denominators and outputs in sum
+    all-reduces; no rank gathers the cache.  -> (B, Sq, H*hd)."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = k.device_mesh
+    kpl, qpl = _cache_placements(k)
+    seq = [p.is_shard(1) for p in kpl]
+    max_pl = [Partial("max") if s else p for s, p in zip(seq, qpl)]
+    sum_pl = [Partial("sum") if s else p for s, p in zip(seq, qpl)]
+    start = shard_start(mesh, kpl, 1, k.shape[1])
+    B, Sq, H, hd = q.shape
+
+    def scores(ql, kl, vl):
+        KV = kl.shape[2]
+        qf = (ql.float() * (1.0 / math.sqrt(hd))).reshape(ql.shape[0], Sq, KV, H // KV, hd)
+        s = torch.einsum("bqkgh,bnkh->bqkgn", qf, kl.float())
+        s = s + bias[start:start + kl.shape[1]][None, None, None, None, :]
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        return m, p.sum(-1), torch.einsum("bqkgn,bnkh->bqkgh", p, vl.float())
+
+    def rescale(m_l, m, l_l, o_l):
+        corr = torch.exp(m_l - m)
+        return l_l * corr, o_l * corr[..., None]
+
+    m_l, l_l, o_l = local_map(scores, out_placements=(max_pl, sum_pl, sum_pl),
+                              in_placements=(qpl, kpl, kpl), device_mesh=mesh,
+                              redistribute_inputs=True)(q, k, v)
+    m = m_l.redistribute(mesh, qpl)
+    l_r, o_r = local_map(rescale, out_placements=(sum_pl, sum_pl),
+                         in_placements=(max_pl, qpl, sum_pl, sum_pl),
+                         device_mesh=mesh)(m_l, m, l_l, o_l)
+    out = o_r.redistribute(mesh, qpl) / l_r.redistribute(mesh, qpl)[..., None]
+    return out.reshape(B, Sq, H * hd).to(q.dtype)

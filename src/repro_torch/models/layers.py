@@ -14,6 +14,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.layout import AnyDTensor, shard_start
+
 
 def _dense_init(gen: torch.Generator, shape, dtype, device,
                 scale: Optional[float] = None, lead=()) -> torch.Tensor:
@@ -30,10 +32,25 @@ def init_rmsnorm(dim: int, dtype, device, lead=()) -> dict:
     return {"scale": torch.ones(tuple(lead) + (dim,), dtype=dtype, device=device)}
 
 
+def row_mean(t: torch.Tensor) -> torch.Tensor:
+    """``t.mean(-1, keepdim=True)``.  On a DTensor whose last dim is
+    sharded: a sum whose partials are reduced on every rank, then divided
+    (so the rows keep their layout, instead of DTensor reduce-scattering
+    the statistic over the sequence; an average's partials have no
+    gradient rule)."""
+    if not isinstance(t, AnyDTensor):
+        return t.mean(-1, keepdim=True)
+    from torch.distributed.tensor import Replicate
+    s = t.sum(-1, keepdim=True)
+    s = s.redistribute(s.device_mesh, [Replicate() if p.is_partial() else p
+                                       for p in s.placements])
+    return s / t.shape[-1]
+
+
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     dt = x.dtype
     x32 = x.float()
-    var = x32.square().mean(dim=-1, keepdim=True)
+    var = row_mean(x32.square())
     y = x32 * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(dt)
 
@@ -41,7 +58,7 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 def l2norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """Parameter-free L2 norm over the last dim (QK-norm)."""
     x32 = x.float()
-    return (x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)).to(x.dtype)
+    return (x32 * torch.rsqrt(row_mean(x32.square()) + eps)).to(x.dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
@@ -79,7 +96,60 @@ def _act(h: torch.Tensor, act: str) -> torch.Tensor:
     raise ValueError(act)
 
 
+def along(fn, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``fn(x)`` for an op along ``dim`` (a pad, a roll) that keeps every
+    other dim as it is: a DTensor runs it on its local shards with ``dim``
+    whole, so no sharding strategy is asked of the op."""
+    if not isinstance(x, AnyDTensor):
+        return fn(x)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    pl = [Replicate() if p.is_partial() or p.is_shard(dim) else p for p in x.placements]
+    return local_map(fn, out_placements=pl, in_placements=(pl,), device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x)
+
+
+def features_whole(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its last (feature) dim whole on every rank: a DTensor's
+    shards of it gathered (and partial sums reduced) before a
+    column-parallel matmul, as Megatron's tensor parallelism does; a plain
+    tensor as it is."""
+    if not isinstance(x, AnyDTensor):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_shard(x.ndim - 1)
+                                          or p.is_partial() else p for p in x.placements])
+
+
+class _WholeGrad(torch.autograd.Function):
+    """The identity; its backward gathers the gradient's feature dim."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return features_whole(g)
+
+
+def whole_grad(x: torch.Tensor) -> torch.Tensor:
+    """``x``; on a DTensor, its gradient comes back with the feature dim
+    whole (gathered) on every rank."""
+    return _WholeGrad.apply(x) if isinstance(x, AnyDTensor) else x
+
+
+def project_out(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``h @ w`` for an output projection (row-parallel under tensor
+    parallelism).  On DTensors its gradient arrives with the feature dim
+    whole, so the backward's products keep the hidden dim sharded (DTensor
+    would otherwise form the whole hidden dim's gradient as a partial sum
+    on every rank)."""
+    return whole_grad(h @ w)
+
+
 def mlp(params: dict, x: torch.Tensor, act: str = "silu", gated: bool = True) -> torch.Tensor:
+    x = features_whole(x)
     h = x @ params["w_in"]
     if gated:
         if act not in ("silu", "gelu"):
@@ -87,7 +157,7 @@ def mlp(params: dict, x: torch.Tensor, act: str = "silu", gated: bool = True) ->
         h = _act(x @ params["w_gate"], act) * h
     else:
         h = _act(h, act)
-    return h @ params["w_out"]
+    return project_out(h, params["w_out"])
 
 
 def init_embed(gen, vocab: int, d_model: int, dtype, device, tie: bool) -> dict:
@@ -98,13 +168,49 @@ def init_embed(gen, vocab: int, d_model: int, dtype, device, tie: bool) -> dict:
 
 
 def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    if isinstance(params["tok"], AnyDTensor):
+        return _sharded_embed(params["tok"], tokens)
     return params["tok"][tokens]
 
 
+def _sharded_embed(tok, tokens):
+    """``embed`` of a DTensor table: each rank looks its own tokens (the
+    batch sharded as the tokens are) up in its own table shard (the
+    feature dim sharded as the table's; the vocab whole), so the lookup
+    needs no sharding strategy for an index op over nested batch shards.
+    The table's gradient is a partial sum over the ranks of the token
+    shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = tok.device_mesh
+    ipl = ([Shard(0) if p.is_shard(0) else Replicate() for p in tokens.placements]
+           if isinstance(tokens, AnyDTensor) else [Replicate()] * mesh.ndim)
+    tpl = [Shard(1) if p.is_shard(1) and not ip.is_shard() else Replicate()
+           for p, ip in zip(tok.placements, ipl)]
+    out = [Shard(0) if ip.is_shard() else Shard(2) if tp.is_shard() else Replicate()
+           for ip, tp in zip(ipl, tpl)]
+    grad = [Partial() if ip.is_shard() else tp for ip, tp in zip(ipl, tpl)]
+    return local_map(lambda t, i: t[i], out_placements=out, in_placements=(tpl, ipl),
+                     in_grad_placements=(grad, ipl), device_mesh=mesh,
+                     redistribute_inputs=True)(tok, tokens)
+
+
 def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
-    if "unembed" in params:
-        return x @ params["unembed"]
-    return x @ params["tok"].T
+    """Logits.  On DTensors the (D, V) weight is first laid out over the
+    vocab where the rules shard the tied table's feature dim, and ``x``'s
+    feature dim is gathered, so the logits come out vocab-sharded and
+    neither they nor their gradient are ever gathered over the vocab on a
+    rank."""
+    w = params["unembed"] if "unembed" in params else params["tok"].T
+    if isinstance(w, AnyDTensor):
+        from torch.distributed.tensor import Replicate, Shard
+        V, mesh = w.shape[1], w.device_mesh
+        pl = [Shard(1) if p.is_shard(0) and V % mesh.size(i) == 0
+              else Replicate() if p.is_shard(0) else p for i, p in enumerate(w.placements)]
+        w = w.redistribute(mesh, pl)
+        x = features_whole(x)
+    return x @ w
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor, ignore: int = -1,
@@ -115,9 +221,44 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor, ignore: int 
     if valid_vocab is not None and valid_vocab < logits.shape[-1]:
         dead = torch.arange(logits.shape[-1], device=logits.device) >= valid_vocab
         logits = logits.masked_fill(dead, -1e30)
-    logz = torch.logsumexp(logits, dim=-1)
     mask = (targets != ignore).float()
     # an ignored target may be out of range: gather at 0, masked out below
     idx = torch.where(targets != ignore, targets, torch.zeros_like(targets))
-    gold = logits.gather(-1, idx[..., None].long())[..., 0]
+    if isinstance(logits, AnyDTensor):
+        logz, gold = _sharded_logz_gold(logits, idx)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, idx[..., None].long())[..., 0]
     return ((logz - gold) * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def _sharded_logz_gold(logits, idx):
+    """(logsumexp over the vocab, the gold logit) of a DTensor whose vocab
+    dim may be sharded: the max and the sum reduce across ranks as (B, S)
+    partials, and each rank gathers the gold logits its vocab shard holds
+    (zero elsewhere, a partial sum), so no rank gathers the whole vocab."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, vdim = logits.device_mesh, logits.ndim - 1
+    pl = tuple(Replicate() if p.is_partial() else p for p in logits.placements)
+    logits = logits.redistribute(mesh, pl)
+    idx_pl = [Replicate() if p.is_shard(vdim) else p for p in pl]
+    # the (B, S, 1) reductions whole over the vocab's mesh dims (DTensor
+    # would otherwise reduce-scatter them over the batch, and their
+    # gradients would then reshard the vocab-sharded logits)
+    m = logits.detach().amax(-1, keepdim=True).redistribute(mesh, idx_pl)
+    se = torch.exp(logits - m).sum(-1, keepdim=True).redistribute(mesh, idx_pl)
+    logz = (m + torch.log(se))[..., 0]
+    start = shard_start(mesh, pl, vdim, logits.shape[-1])
+    out_pl = [Partial() if p.is_shard(vdim) else p for p in pl]
+
+    def local(lg, ix):
+        loc = ix.long() - start
+        ok = (loc >= 0) & (loc < lg.shape[-1])
+        g = lg.gather(-1, torch.where(ok, loc, torch.zeros_like(loc))[..., None])[..., 0]
+        return torch.where(ok, g, torch.zeros_like(g))
+
+    gold = local_map(local, out_placements=out_pl, in_placements=(pl, idx_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(logits, idx)
+    return logz, gold.redistribute(mesh, idx_pl)

@@ -26,9 +26,11 @@ from repro_torch.configs.base import MAMBA, ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.layers import (_dense_init, apply_rope, cross_entropy_loss,
-                                       embed, init_embed, init_mlp, init_rmsnorm, mlp,
-                                       rmsnorm, unembed)
+from repro_torch.models.layers import (_dense_init, along, apply_rope,
+                                       cross_entropy_loss, embed, features_whole,
+                                       init_embed, init_mlp, init_rmsnorm, mlp,
+                                       project_out, rmsnorm, unembed)
+from repro_torch.sharding.context import constrain_named
 from repro_torch.utils.device import make_generator, resolve_device
 from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -137,8 +139,7 @@ def _full_attention(q, k, v) -> torch.Tensor:
     """Non-causal softmax attention, (B, Sq, H*hd), through the tiled
     ``_flash_attention`` (kind "full"), as the reference's encoder and
     cross-attention: no (Sq, Sk) score matrix at any length."""
-    B, Sq, H, hd = q.shape
-    return attn_lib._flash_attention(q, k, v, "full", 0, 0).reshape(B, Sq, H * hd)
+    return attn_lib.merge_heads(attn_lib._flash_attention(q, k, v, "full", 0, 0))
 
 
 def _cross_attention(params, x, memory, cfg: ModelConfig) -> torch.Tensor:
@@ -146,22 +147,24 @@ def _cross_attention(params, x, memory, cfg: ModelConfig) -> torch.Tensor:
     B, Sq, _ = x.shape
     Sk = memory.shape[1]
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(B, Sq, H, hd)
-    k = (memory @ params["wk"]).reshape(B, Sk, KV, hd)
-    v = (memory @ params["wv"]).reshape(B, Sk, KV, hd)
-    return _full_attention(q, k, v) @ params["wo"]
+    x, memory = features_whole(x), features_whole(memory)
+    q = attn_lib.split_heads(x @ params["wq"], H, hd)
+    k = attn_lib.split_heads(memory @ params["wk"], KV, hd)
+    v = attn_lib.split_heads(memory @ params["wv"], KV, hd)
+    return project_out(_full_attention(q, k, v), params["wo"])
 
 
 def _noncausal_self_attention(params, x, acfg: dict) -> torch.Tensor:
     B, S, _ = x.shape
     H, KV, hd = acfg["num_heads"], acfg["num_kv_heads"], acfg["head_dim"]
-    q = (x @ params["wq"]).reshape(B, S, H, hd)
-    k = (x @ params["wk"]).reshape(B, S, KV, hd)
-    v = (x @ params["wv"]).reshape(B, S, KV, hd)
+    x = features_whole(x)
+    q = attn_lib.split_heads(x @ params["wq"], H, hd)
+    k = attn_lib.split_heads(x @ params["wk"], KV, hd)
+    v = attn_lib.split_heads(x @ params["wv"], KV, hd)
     pos = torch.arange(S, device=x.device)[None, :]
     q = apply_rope(q, pos, acfg["rope_theta"])
     k = apply_rope(k, pos, acfg["rope_theta"])
-    return _full_attention(q, k, v) @ params["wo"]
+    return project_out(_full_attention(q, k, v), params["wo"])
 
 
 def _encoder_block(cfg: ModelConfig, acfg: dict, x, bp):
@@ -232,10 +235,10 @@ def _ring_from_prefill(kv: dict, cfg_attn: dict, S: int, cache_len: int) -> dict
 
     def ring(a):
         if S <= Sc:     # slot == pos, not yet wrapped: pad to capacity
-            return torch.nn.functional.pad(a, (0, 0, 0, 0, 0, Sc - S))
+            return along(lambda t: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, Sc - S)), a, 1)
         tail = a[:, S - Sc:]
         # element j holds pos S-Sc+j, whose slot is (j + S) % Sc
-        return torch.roll(tail, shifts=S % Sc, dims=1)
+        return along(lambda t: torch.roll(t, shifts=S % Sc, dims=1), tail, 1)
 
     return {"k": ring(kv["k"]), "v": ring(kv["v"])}
 
@@ -289,6 +292,7 @@ def _trunk(params, cfg: ModelConfig, x: torch.Tensor, enc_out=None, on_cache=Non
     takes no ``on_cache``."""
     n_periods = period_info(cfg)[1]
     auxes = []
+    x = constrain_named("act", x)
     for i in range(n_periods):
         bps = _period(params["blocks"], i)
         if remat == "none" or not _needs_grad(x, bps):
@@ -299,6 +303,10 @@ def _trunk(params, cfg: ModelConfig, x: torch.Tensor, enc_out=None, on_cache=Non
             x, aux = torch.utils.checkpoint.checkpoint(
                 _period_body, cfg, x, bps, enc_out, use_reentrant=False,
                 preserve_rng_state=False)
+        # the residual stream at each period boundary (what remat saves)
+        # takes the launcher's activation placements, as the reference's
+        # carry constraint
+        x = constrain_named("act", x)
         auxes.append(aux)
     aux = torch.stack(auxes).sum() if cfg.moe else \
         torch.zeros((), dtype=torch.float32, device=x.device)

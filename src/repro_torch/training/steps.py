@@ -14,6 +14,20 @@ Three step flavors, keyed by ``SyncConfig.mode``:
 ``make_prefill_step`` / ``make_decode_step`` wrap the model's prefill and
 decode for one config, as the reference's serving factories do.
 
+Over a ``DeviceMesh`` (``make_train_step(..., mesh=)``, the dry-run's
+production meshes) the state and batch are DTensors with
+``sharding.rules``' placements.  The dense step runs as it is.  The
+efbv / hier / local steps become per-rank steps: a rank computes only its
+own group's (replica's) gradient on its own batch shard, on the sub-mesh
+its group owns, and the groups meet in ``core.ef_bv``'s workers over the
+process group of the group axes (``efbv_sync_worker``,
+``param_sync_worker``), as the reference's partitioned program maps its
+group axis onto the data axes.  A rank compresses its own shard of a leaf
+over "model"; where that shard is the whole leaf ("model" of size 1) or
+the compressor works element by element, the step equals the
+single-process one, and ``noise`` (nested as the single-process per-leaf
+sync's, ``noise[li][i]`` for group i) replays its draws.
+
 A step is ``step(state, batch, survivors=None, noise=None) -> (state,
 metrics)``.  Its draws come from ``TrainState.generator``; ``noise`` (a
 test hook) hands the sync the JAX package's draws instead, nested as
@@ -35,6 +49,9 @@ import torch
 from repro_torch.comm import buckets as bk
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core import distributed as dist
+from repro_torch.core.ef_bv import efbv_sync_worker, param_sync_worker
+from repro_torch.sharding.layout import (AnyDTensor, group_axes, group_index, process_group,
+                                        sub_mesh)
 from repro_torch.models import decode_step as model_decode_step
 from repro_torch.models import loss_fn, prefill
 from repro_torch.models.layers import embed
@@ -88,17 +105,72 @@ def init_train_state(generator: torch.Generator, params, tc: TrainConfig,
 
 
 def _split(batch: dict, G: int, i: int) -> dict:
-    """Group ``i`` of ``G`` equal slices of every batch array."""
-    return {k: v.reshape((G, v.shape[0] // G) + tuple(v.shape[1:]))[i]
-            for k, v in batch.items()}
+    """Group ``i`` of ``G`` equal slices of every batch array (of a DTensor:
+    of each rank's local shard, so a microbatch stays on its ranks)."""
+    def one(v):
+        if isinstance(v, AnyDTensor):
+            from torch.distributed.tensor import DTensor
+            loc = one(v.to_local())
+            shape = (v.shape[0] // G,) + tuple(v.shape[1:])
+            return DTensor.from_local(loc, v.device_mesh, v.placements, run_check=False,
+                                      shape=shape, stride=torch.empty(shape, device="meta").stride())
+        return v.reshape((G, v.shape[0] // G) + tuple(v.shape[1:]))[i]
+
+    return {k: one(v) for k, v in batch.items()}
 
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_groups: int, n_pods: int):
+def _localize(x, mesh, axes, sub, drop_lead: bool = False):
+    """DTensor ``x`` on ``mesh`` -> the part this rank's coordinate on the
+    mesh axes ``axes`` selects, as a DTensor on ``sub``, the sub-mesh of the
+    other axes, sharing ``x``'s local storage.  With ``drop_lead`` the leading
+    dim (sharded over exactly ``axes``, one index per rank: a group or
+    replica axis) is removed."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    names = mesh.mesh_dim_names
+    keep = tuple(a for a in names if a not in axes)
+    loc = x.to_local()
+    pl = [p for a, p in zip(names, x.placements) if a in keep]
+    if drop_lead:
+        loc = loc[0]
+        pl = [Shard(p.dim - 1) if p.is_shard() else p for p in pl]
+    shape = list(loc.shape)
+    for a, p in zip(keep, pl):
+        if p.is_shard():
+            shape[p.dim] *= mesh.size(names.index(a))
+    return DTensor.from_local(loc, sub, pl, run_check=False, shape=tuple(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def _gathered_over(x, mesh, axes):
+    """DTensor ``x`` with its shards over the mesh axes ``axes`` gathered."""
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(mesh, [Replicate() if a in axes else p
+                                 for a, p in zip(mesh.mesh_dim_names, x.placements)])
+
+
+def _group_mean(x, group):
+    """A 0-d metric (a DTensor on a sub-mesh, or a tensor) averaged over the
+    ranks of the process group ``group``."""
+    import torch.distributed as tdist
+    x = (x.full_tensor() if isinstance(x, AnyDTensor) else x).clone()
+    tdist.all_reduce(x, group=group)
+    return x / tdist.get_world_size(group)
+
+
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_groups: int, n_pods: int,
+                    mesh=None):
     """The step for ``tc.sync.mode``.  Its phases are ``obs.trace`` spans:
     ``step/grad`` (forward + backward), ``step/sync`` (the fused efbv step's
     bucketize of each group's gradient included) and ``step/apply`` (clip +
     optimizer).  Steps that loop over groups open a phase's span once per
-    group, so a reader sums a step's spans by name."""
+    group, so a reader sums a step's spans by name.
+
+    ``mesh``: the ``DeviceMesh`` the state's DTensors live on; the efbv
+    family and hier / local then take their per-rank forms (the module
+    docstring).  The efbv state is per leaf there (``h`` (G, ...) over the
+    data axes, ``h_bar`` as the params), as the reference's dry-run lays it
+    out."""
     opt = _make_optimizer(tc)
     sync = tc.sync
     mode = sync.mode
@@ -135,8 +207,8 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_groups: int, n_pods: in
                 batch = dict(batch)
                 with torch.no_grad():
                     batch["inputs_embeds"] = embed(state.params["embed"], batch["tokens"])
-                gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                      device=p.device), state.params)
+                gsum = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                                state.params)
                 lsum = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
                 for a in range(A):
                     l, _, g = grad_fn(state.params, _split(batch, A, a))
@@ -236,12 +308,99 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_groups: int, n_pods: in
         metrics = {"loss": loss, "ce": loss, "grad_norm": torch.stack(gnorms).sum() / G_rep}
         return TrainState(params_g, opt_state, sync_state, state.generator), metrics
 
+    # ----------------------------------------------- per-rank forms on a mesh
+    if mesh is not None and mode != "dense":
+        # this rank's group (replica): the mesh axes the groups lie on, the
+        # sub-mesh of the other axes it computes on, its process group and
+        # its index, made once (the mesh's bookkeeping runs host tensor ops)
+        g_axes = group_axes(mesh, mode)
+        g_sub, group = sub_mesh(mesh, g_axes), process_group(mesh, g_axes)
+        gi = group_index(mesh, g_axes)
+
+        def lz(x, drop_lead=False):
+            return _localize(x, mesh, g_axes, g_sub, drop_lead)
+
+    def efbv_rank_step(state: TrainState, batch, survivors=None, noise=None):
+        """This rank's group: its batch shard, the params gathered over the
+        data axes (tensor-parallel over ``"model"`` only), one backward,
+        then ``efbv_sync_worker`` leaf by leaf over the data axes' group."""
+        from torch.distributed.tensor import DTensor
+        params = tree_map(lambda p: lz(_gathered_over(p, mesh, g_axes)), state.params)
+        with obs_trace.span("step/grad"):
+            loss, parts, grads = grad_fn(params, {k: lz(v) for k, v in batch.items()})
+        del params
+        st = state.sync_state
+        g_est = []
+        with obs_trace.span("step/sync"):
+            for li, (g, p, h, hb) in enumerate(zip(*(tree_flatten(t)[0] for t in (
+                    grads, state.params, st.h, st.h_bar)))):
+                g = g.redistribute(g.device_mesh, lz(p).placements).to_local()
+                h_i = lz(h, drop_lead=True).to_local()
+                hb_full = _gathered_over(hb, mesh, g_axes)
+                ge, nh, nhb = efbv_sync_worker(
+                    [g], [h_i], [lz(hb_full).to_local()], compressor,
+                    lam, nu, group=group, generator=state.generator,
+                    noise=None if noise is None else [noise[li][gi]])
+                h_i.copy_(nh[0])
+                back = [DTensor.from_local(t[0], mesh, hb_full.placements, run_check=False,
+                                           shape=hb.shape, stride=hb.stride())
+                        .redistribute(mesh, p.placements) for t in (ge, nhb)]
+                hb.to_local().copy_(back[1].to_local())
+                g_est.append(back[0])
+                del g, ge, nh, nhb, hb_full, back
+        grads = tree_unflatten(tree_flatten(state.params)[1], g_est)
+        with obs_trace.span("step/apply"):
+            opt_state, gnorm = clip_and_step(grads, state.opt_state, state.params)
+        del grads, g_est
+        sync_state = dist.SyncState(h=st.h, h_bar=st.h_bar, step=st.step + 1)
+        metrics = {"loss": _group_mean(loss, group), "ce": _group_mean(parts["ce"], group),
+                   "grad_norm": gnorm}
+        return TrainState(state.params, opt_state, sync_state, state.generator), metrics
+
+    def local_rank_step(state: TrainState, batch, survivors=None, noise=None):
+        """This rank's replica (its index on the replica axes: "pod" for
+        hier, the data axes for local): a local step on the sub-mesh the
+        replica owns, in place, then, in a round where the sync fires,
+        ``param_sync_worker`` over the replica axes' group."""
+        rep = lambda t: lz(t, drop_lead=True)                          # noqa: E731
+        params = tree_map(rep, state.params)
+        st_r = OptState(state.opt_state.step, tree_map(rep, state.opt_state.mu),
+                        tree_map(rep, state.opt_state.nu))
+        with obs_trace.span("step/grad"):
+            loss, _, grads = grad_fn(params, {k: lz(v) for k, v in batch.items()})
+        grads = tree_map(lambda g, p: g.redistribute(p.device_mesh, p.placements),
+                         grads, params)
+        with obs_trace.span("step/apply"):
+            _, gnorm = clip_and_step(grads, st_r, params)
+        del grads
+        st = state.sync_state
+        h_bar = st.h_bar
+        with obs_trace.span("step/sync"):
+            if st.step % sync.sync_period == sync.sync_period - 1:
+                local = lambda t: t.to_local()                          # noqa: E731
+                new_hb = param_sync_worker(
+                    tree_map(local, params), tree_map(local, h_bar), compressor, lam,
+                    group=group, generator=state.generator,
+                    noise=None if noise is None else [n[gi] for n in noise])
+                for hb, n in zip(tree_flatten(h_bar)[0], tree_flatten(new_hb)[0]):
+                    hb.to_local().copy_(n)
+                del new_hb
+        opt_state = OptState(state.opt_state.step + 1, state.opt_state.mu,
+                             state.opt_state.nu)
+        sync_state = dist.SyncState(h=st.h, h_bar=h_bar, step=st.step + 1)
+        loss = _group_mean(loss, group)
+        metrics = {"loss": loss, "ce": loss,
+                   "grad_norm": _group_mean(gnorm, group)}
+        return TrainState(state.params, opt_state, sync_state, state.generator), metrics
+
     if mode == "dense":
         return dense_step
     if mode in ("efbv", "ef21", "diana"):
-        return efbv_step
+        return efbv_step if mesh is None else efbv_rank_step
     if mode in ("hier", "local"):
-        return local_step
+        if mesh is not None and cascade:
+            raise NotImplementedError("an aggregation-tree cascade over a mesh")
+        return local_step if mesh is None else local_rank_step
     raise ValueError(mode)
 
 

@@ -52,7 +52,8 @@ def test_the_scan_covers_every_ported_module():
                  "repro_torch.lint.callgraph", "repro_torch.lint.contracts",
                  "repro_torch.lint.__main__", "repro_torch.lint.rules.rl002_randomness",
                  "repro_torch.sharding.rules", "repro_torch.sharding.context",
-                 "repro_torch.launch.mesh"):
+                 "repro_torch.launch.mesh", "repro_torch.launch.specs",
+                 "repro_torch.launch.dryrun"):
         assert name in MODULES, name
 
 

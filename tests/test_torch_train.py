@@ -310,10 +310,15 @@ def test_trainer_cli_runs_on_the_cpu_and_defaults_to_the_card(tmp_path):
     assert r.returncode == 0, r.stderr[-2000:]
     assert "sync=efbv" in r.stdout and "step    2 loss" in r.stdout
     assert (tmp_path / "ck.npz").exists()
+    # --dry-run hands the process over to the dry-run with its shape and mesh
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH,
+                        "--dry-run", "--shape", "decode_32k", "--multi-pod"],
+                       capture_output=True, text=True, env=env, cwd=str(tmp_path), timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    rec = json.loads((tmp_path / "results" / "dryrun"
+                      / f"{ARCH}__decode_32k__mp__dense.json").read_text())
+    assert rec["status"] == "ok" and rec["mesh"] == "2x16x16" and rec["collectives"]
     from repro_torch.launch.train import main
-    for flags in (["--dry-run"], ["--multi-pod"], ["--shape", "train_4k"]):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-            main(["--arch", ARCH] + flags)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["--arch", ARCH, "--reduced", "--steps", "1"])
