@@ -188,24 +188,44 @@ the script exits nonzero without printing a result:
            rank its own batch; every rank's (g_est, h_i, h_bar) equal bit for
            bit to the per-leaf efbv_sync with G = 4 on every rank's gathered
            grads and replayed draws.  Sync ms per rank, probed and unprobed
-  dryrun   the dry-run (repro_torch.launch.dryrun: the step traced under
-           FakeTensorMode on DTensors over a fake process group, nothing
-           allocated).  (a) In a subprocess of its own (this process holds
-           NCCL and gloo groups), three full-width cells on the production
-           meshes: h2o-danube-1.8b x train_4k x (16, 16) dense,
-           qwen1.5-110b x decode_32k x (2, 16, 16) (FSDP serving) and
-           mamba2-2.7b x long_500k x (16, 16); each must be ok, with its
-           trace seconds, per-rank argument and peak bytes and collective
-           counts printed.  (b) The memory anchor on the card: whole
-           h2o-danube-1.8b, a dense train step at (1, 4096), remat full, and
-           a prefill at (1, 8192), each first traced by the dry-run's
-           one-device step under FakeTensorMode (the estimate), then run
-           for real from the same state after reset_peak_memory_stats: the
-           argument bytes must be equal and max_memory_allocated over the
-           estimate within [0.8, 1.25].  (c) python -m repro_torch.launch.train
-           --arch h2o-danube-1.8b --dry-run --shape decode_32k --multi-pod
-           (a subprocess) must write its record with status ok.  (a) and
-           (c) run while (b) does
+  ep       the expert-parallel MoE paths (models.moe.moe_ffn_shardmap, with
+           gather_quant, and moe_ffn_alltoall) on a 1-rank NCCL group's
+           (1, 1) mesh, their collectives real NCCL calls: one full-width
+           MoE layer of llama4-scout-17b-a16e (16 experts top-1 + shared)
+           and of dbrx-132b (16 experts top-4), bf16, tokens (2, 288, d),
+           forward and backward against the scatter moe_ffn (gather_quant
+           against the scatter path on the tokens it gathers): outputs,
+           aux and gradients within 2e-2 of the max; ms and peak each
+  dryrun   the dry-run and the costing (repro_torch.launch.dryrun /
+           costing / perf: the step traced under FakeTensorMode on
+           DTensors over a fake process group, nothing allocated).  (a)
+           Each in a subprocess of its own (this process holds NCCL and
+           gloo groups), four full-width cells on the production meshes:
+           h2o-danube-1.8b x train_4k x (16, 16) dense, qwen1.5-110b x
+           decode_32k x (2, 16, 16) (FSDP serving), mamba2-2.7b x
+           long_500k x (16, 16) and llama4-scout-17b-a16e x train_4k x
+           (16, 16) (the expert-parallel shardmap MoE); each must be ok,
+           with its trace seconds, per-rank argument and peak bytes and
+           collective counts printed.  (b) The memory anchor on the card:
+           whole h2o-danube-1.8b, a dense train step at (1, 4096), remat
+           full, and a prefill at (1, 8192), each first traced by the
+           dry-run's one-device step under FakeTensorMode (the estimate),
+           then run for real from the same state after
+           reset_peak_memory_stats: the argument bytes must be equal and
+           max_memory_allocated over the estimate within [0.8, 1.25].  (c)
+           python -m repro_torch.launch.train --arch h2o-danube-1.8b
+           --dry-run --shape decode_32k --multi-pod (a subprocess) must
+           write its record with status ok.  (d) The flop anchor: (b)'s
+           train step on the card under FlopCounterMode counts exactly the
+           flops of the dry-run's fake trace of it, costing.corrected_costs
+           (1 and 2 layers, extrapolated) lies within 1% of that count, and
+           the achieved TFLOP/s of the warm step (CUDA events) against
+           989.4.  (e) python -m repro_torch.launch.perf records (subprocesses):
+           danube train_4k at baseline and sync_efbv, llama4 train_4k at
+           baseline, moe_a2a and moe_quant, mamba2 prefill_32k under
+           ssd_heads; each record's roofline terms, memory, collective
+           bytes and trace seconds beside the direct cell's.  (a), (c) and
+           (e) run while (b) and (d) do
   timing   B1-B3 and B6 (beside B2) at the serve path's shape, B4/B5 at the
            codec path's d, and B7/B8 (both modes, three score modes) at one
            full-width w_in (2560 x 6912 bf16) on the card (CUDA events,
@@ -334,13 +354,29 @@ LONG_TRAIN_SEQ, LONG_CHECK_SEQ, LONG_ATOL = 16384, 2048, 2e-5
 # the ranks' time limit; the seeds of the batches, h_i, h_bar and the draws
 DP_SEQ, DP_RANKS, DP_LAYERS, DP_JOIN_S = 64, 4, 4, 600
 DP_BATCH_SEED, DP_H_SEED, DP_HBAR_SEED, DP_DRAW_SEED = 10, 200, 300, 1000
+# ep phase: the expert-parallel MoE paths on a 1-rank NCCL mesh, one
+# full-width MoE layer of each MOE_CUTS config on prefill-shaped tokens; the
+# tolerance of the paths against the scatter path (bf16 outputs and
+# gradients, of the max)
+EP_PATHS = ("shardmap", "shardmap gather_quant", "alltoall")
+EP_RTOL = 2e-2
 # the dry-run's full-width cells on the fake backend: (arch, shape, multi-pod)
 DRYRUN_CELLS = (("h2o-danube-1.8b", "train_4k", False), ("qwen1.5-110b", "decode_32k", True),
-                ("mamba2-2.7b", "long_500k", False))
+                ("mamba2-2.7b", "long_500k", False), ("llama4-scout-17b-a16e", "train_4k", False))
+# perf records (launch.perf) on the fake backend: (arch, shape, variants)
+PERF_RECORDS = (("h2o-danube-1.8b", "train_4k", ""), ("h2o-danube-1.8b", "train_4k", "sync_efbv"),
+                ("llama4-scout-17b-a16e", "train_4k", ""),
+                ("llama4-scout-17b-a16e", "train_4k", "moe_a2a"),
+                ("llama4-scout-17b-a16e", "train_4k", "moe_quant"),
+                ("mamba2-2.7b", "prefill_32k", "ssd_heads"))
+FLOP_ANCHOR_RTOL = 0.01       # corrected_costs' flops vs the direct count
+H100_PEAK_FLOPS = 989.4e12    # dense bf16 (launch.mesh.PEAK_FLOPS_BF16)
 DRYRUN_CLI = ("h2o-danube-1.8b", "decode_32k")     # through launch.train --dry-run --multi-pod
 ANCHOR_RUNS = (("train", 4096), ("prefill", 8192))  # (kind, seq) at batch 1, remat full
 ANCHOR_RANGE = (0.8, 1.25)    # max_memory_allocated / the dry-run's estimate
-DRYRUN_JOIN_S = 600
+# from the phase's start: the llama4 train_4k traces took 356-471 s of host
+# time on the card's machine, all in parallel
+DRYRUN_JOIN_S = 900
 
 
 class SmokeFailure(RuntimeError):
@@ -3071,30 +3107,193 @@ def phase_dp(device, layers_b=DP_LAYERS, world=DP_RANKS, join_s=DP_JOIN_S, reduc
 
 
 # ---------------------------------------------------------------------------
+def ep_tensors(cfg, device, seed):
+    """One full-width MoE layer of ``cfg`` (``init_moe``, the model's init,
+    in its dtype) and N(0, 1) tokens (2, MOE_PROMPT, d), as the layer's
+    normalized input is scaled."""
+    import torch
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.transformer import model_dtype
+    m, dt = cfg.moe, model_dtype(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = moe_lib.init_moe(gen, cfg.d_model, cfg.d_ff, m.num_experts, cfg.mlp_gated,
+                              m.shared_expert, dt, device)
+    x = torch.randn((2, MOE_PROMPT, cfg.d_model), generator=gen, device=device).to(dt)
+    r = torch.randn(x.shape, generator=gen, device=device)
+    return params, x, r
+
+
+def ep_dequant(x):
+    """The tokens ``gather_quant`` gathers on a 1-rank "model" axis: per
+    token absmax int8 codes (``round``) times their scales."""
+    import torch
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True) / 127.0
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    return (torch.round(xf / scale).clamp(-127, 127).to(torch.int8).float() * scale).to(x.dtype)
+
+
+def ep_nest(flat):
+    """{"a/b": t} -> {"a": {"b": t}}."""
+    tree = {}
+    for k, v in flat.items():
+        node = tree
+        *path, last = k.split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[last] = v
+    return tree
+
+
+def ep_run(fn, x, r, device, leaves):
+    """fn(flat params, x) -> (y, aux) on copies of ``leaves`` (a flat
+    {path: tensor}) that take gradients; forward + backward of
+    sum(y * r) + aux, once to warm up (the first collective sets up the
+    NCCL communicator), then timed -> (y, aux, grads of x and the leaves,
+    CUDA-event ms, peak GiB of the timed run)."""
+    import torch
+
+    def once():
+        xs = x.detach().clone().requires_grad_(True)
+        ps = {k: v.detach().clone().requires_grad_(True) for k, v in leaves.items()}
+        y, aux = fn(ps, xs)
+        grads = torch.autograd.grad((y.float() * r).sum() + aux, [xs] + list(ps.values()))
+        return y.detach(), aux.detach(), [g.detach() for g in grads]
+
+    once()
+    torch.cuda.synchronize(device)
+    peak_reset(device)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = once()
+    b.record()
+    b.synchronize()
+    return (*out, a.elapsed_time(b), peak_gib(device))
+
+
+def phase_ep(device):
+    """The expert-parallel MoE paths (Queue 1, item 8d) on a 1-rank NCCL
+    group's (1, 1) ("data", "model") mesh: ``moe_ffn_shardmap``, with
+    ``gather_quant`` and ``moe_ffn_alltoall``, their collectives real NCCL
+    calls on the one rank, against the scatter ``moe_ffn`` on the same
+    full-width MoE layer (llama4: 16 experts top-1 + shared; dbrx: 16
+    experts top-4; bf16) and tokens, forward and backward (sum(y * r) +
+    aux): outputs and gradients within EP_RTOL of the max, aux equal.
+    gather_quant's routing sees the int8 tokens, so a near-tie picks
+    another expert or drops another token: it is held to the scatter path
+    on the tokens it gathers (``ep_dequant``), and its tokens' gradient
+    (through the scales only) is not compared."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.transformer import _moe_kw
+
+    if device.type != "cuda":
+        raise SmokeFailure("ep: the 1-rank NCCL group needs the card")
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "store"),
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        for arch, n_layers in MOE_CUTS:
+            cfg = get_config(arch)
+            kw = _moe_kw(cfg)
+            params, x, r = ep_tensors(cfg, device, 0)
+            leaves = {k: v for k, v in params.items() if k != "shared"}
+            leaves.update({"shared/" + k: v for k, v in params.get("shared", {}).items()})
+            scatter = lambda ps, xs: moe_lib.moe_ffn(ep_nest(ps), xs, **kw)   # noqa: E731
+            want = ep_run(scatter, x, r, device, leaves)
+            want_q = ep_run(scatter, ep_dequant(x), r, device, leaves)
+            names = ["x"] + list(leaves)
+            log("ep", f"{arch}: one full-width MoE layer (of {n_layers} layers as the arch phase "
+                      f"cuts it: d {cfg.d_model}, ff {cfg.d_ff}, {cfg.moe.num_experts} experts "
+                      f"top-{cfg.moe.top_k}{' + shared' if cfg.moe.shared_expert else ''}, "
+                      f"{x.dtype}), tokens {tuple(x.shape)}: scatter moe_ffn forward + backward "
+                      f"{want[3]:.2f} ms, peak {want[4]:.2f} GiB")
+            # the rules' placements on the (1, 1) mesh; the one rank's local
+            # tensor is the whole (from_local keeps the gradient's path)
+            place = {"router": [Replicate(), Replicate()], "shared/w_in": [Replicate(), Shard(1)],
+                     "shared/w_gate": [Replicate(), Shard(1)],
+                     "shared/w_out": [Replicate(), Shard(0)]}
+
+            def on_mesh(path):
+                impl = moe_lib.moe_ffn_alltoall if path == "alltoall" else moe_lib.moe_ffn_shardmap
+                extra = {"gather_quant": True} if "gather_quant" in path else {}
+
+                def fn(ps, xs):
+                    d = {k: DTensor.from_local(v, mesh, place.get(k, [Replicate(), Shard(0)]),
+                                               run_check=False) for k, v in ps.items()}
+                    xd = DTensor.from_local(xs, mesh, [Shard(0), Shard(2)], run_check=False)
+                    y, aux = impl(ep_nest(d), xd, **kw, **extra)
+                    return y.to_local(), aux.to_local()
+                return fn
+
+            for path in EP_PATHS:
+                got = ep_run(on_mesh(path), x, r, device, leaves)
+                quant = "gather_quant" in path
+                ref = want_q if quant else want
+                y_err = max_abs_err(got[0], ref[0])
+                y_rel = y_err / float(ref[0].float().abs().max())
+                g_rel = {n: max_abs_err(g, w) / max(float(w.float().abs().max()), 1e-30)
+                         for n, g, w in zip(names, got[2], ref[2]) if not (quant and n == "x")}
+                require(bool(torch.isfinite(got[0].float()).all()), f"ep {arch} {path}: non-finite")
+                require(y_rel <= EP_RTOL, f"ep {arch} {path}: output {y_rel:.3g} of the max > "
+                                          f"{EP_RTOL}")
+                # top-1's renormalized gate is 1: the router's gradient from y is
+                # rounding noise in both paths; its aux gradient is compared
+                bad = {n: e for n, e in g_rel.items() if e > EP_RTOL
+                       and not (n == "router" and cfg.moe.top_k == 1)}
+                require(not bad, f"ep {arch} {path}: gradients over {EP_RTOL} of the max: {bad}")
+                require(abs(float(got[1]) - float(ref[1])) <= EP_RTOL * abs(float(ref[1])),
+                        f"ep {arch} {path}: aux {float(got[1])} vs {float(ref[1])}")
+                log("ep", f"{arch} {path}: output max_abs_err {y_err:.4g} ({y_rel:.3g} of the "
+                          f"max, <= {EP_RTOL}) against the scatter path"
+                          + (" on the int8-gathered tokens" if quant else "")
+                          + f", aux {float(got[1]):.6f} vs {float(ref[1]):.6f}; gradients of "
+                            f"the max: " + ", ".join(f"{n} {e:.3g}" for n, e in g_rel.items())
+                          + f"; forward + backward {got[3]:.2f} ms, peak {got[4]:.2f} GiB")
+            del params, x, r, want, want_q, leaves
+            free_cached(device)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp)
+    log("ep", f"phase {time.perf_counter() - t_phase:.2f} s")
+
+
+# ---------------------------------------------------------------------------
 DRYRUN_SCRIPT = """
 import json, sys
 from repro_torch.launch import dryrun as dr
-out = []
-for arch, shape, mp in json.loads(sys.argv[1]):
-    rec = dr.run_one(arch, shape, mp)
-    rec.pop("traceback", None)
-    out.append(rec)
-print(json.dumps(out))
+arch, shape, mp = json.loads(sys.argv[1])
+rec = dr.run_one(arch, shape, mp)
+rec.pop("traceback", None)
+print(json.dumps(rec))
 """
 
 
 def dryrun_subprocesses(out_dir):
-    """(a) and (c) of the dryrun phase, started: -> the two Popens."""
+    """(a), (c) and (e) of the dryrun phase, started together, one process
+    each: -> {name: Popen}."""
     env = dict(os.environ, PYTHONPATH=SRC)
-    cells = subprocess.Popen([sys.executable, "-c", DRYRUN_SCRIPT, json.dumps(DRYRUN_CELLS)],
-                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                             env=env, cwd=out_dir)
+
+    def start(*argv):
+        return subprocess.Popen([sys.executable, *argv], stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, env=env, cwd=out_dir)
+
+    procs = {f"(a) {i}": start("-c", DRYRUN_SCRIPT, json.dumps(cell))
+             for i, cell in enumerate(DRYRUN_CELLS)}
     arch, shape = DRYRUN_CLI
-    cli = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
-                            "--dry-run", "--shape", shape, "--multi-pod"],
-                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                           env=env, cwd=out_dir)
-    return cells, cli
+    procs["(c)"] = start("-m", "repro_torch.launch.train", "--arch", arch, "--dry-run",
+                         "--shape", shape, "--multi-pod")
+    for i, (arch, shape, variants) in enumerate(PERF_RECORDS):
+        procs[f"(e) {i}"] = start("-m", "repro_torch.launch.perf", "--arch", arch, "--shape",
+                                  shape, "--variants", variants, "--out",
+                                  os.path.join(out_dir, f"perf{i}.json"))
+    return procs
 
 
 def dryrun_record_line(rec):
@@ -3106,22 +3305,41 @@ def dryrun_record_line(rec):
             f"{mem['output_size_in_bytes']} B; collectives {json.dumps(rec['collectives'])}")
 
 
-def check_dryrun_cells(proc, cli, out_dir):
-    """Wait for (a) and (c); every cell and the CLI's record must be ok."""
+def check_dryrun_cells(procs, out_dir, t_start):
+    """Wait for (a), (c) and (e); every cell, the CLI's record and every
+    perf record must be ok."""
     outs = {}
-    for name, p in (("(a)", proc), ("(c)", cli)):
+    for name, p in procs.items():
         try:
-            out, err = p.communicate(timeout=DRYRUN_JOIN_S)
+            out, err = p.communicate(timeout=max(1.0, t_start + DRYRUN_JOIN_S
+                                                 - time.perf_counter()))
         except subprocess.TimeoutExpired:
             p.kill()
             p.communicate()
-            raise SmokeFailure(f"dryrun {name}: not done in {DRYRUN_JOIN_S} s")
+            raise SmokeFailure(f"dryrun {name}: not done {DRYRUN_JOIN_S} s after the phase's start")
         require(p.returncode == 0, f"dryrun {name} exited {p.returncode}: {err[-3000:]}")
         outs[name] = out
-    for rec in json.loads(outs["(a)"].strip().splitlines()[-1]):
+    traces = {}
+    for i in range(len(DRYRUN_CELLS)):
+        rec = json.loads(outs[f"(a) {i}"].strip().splitlines()[-1])
         require(rec["status"] == "ok", f"dryrun (a) {rec['arch']} x {rec['shape']}: "
                                        f"{rec['status']}: {rec.get('error') or rec.get('reason')}")
+        traces[(rec["arch"], rec["shape"])] = rec["trace_s"]
         log("dryrun", "(a) " + dryrun_record_line(rec))
+    for i, (arch, shape, variants) in enumerate(PERF_RECORDS):
+        with open(os.path.join(out_dir, f"perf{i}.json")) as f:
+            rec = json.load(f)
+        require(rec["sync"] == ("efbv" if variants == "sync_efbv" else "dense")
+                and rec["terms_s"]["compute_s"] > 0 and rec["coll_total"] > 0,
+                f"dryrun (e) {arch} {shape} {variants}: {rec}")
+        direct = traces.get((arch, shape))
+        log("dryrun", f"(e) perf {arch} x {shape} [{variants or 'baseline'}] ({rec['mesh']}, "
+                      f"sync {rec['sync']}): trace {rec['trace_s']} s host"
+                      + (f" (the direct dry-run cell: {direct} s)" if direct else "")
+                      + f"; terms {json.dumps(rec['terms_s'])}, dominant {rec['dominant']}, "
+                        f"useful {rec['useful_ratio']:.4f}; per rank peak {rec['peak_gb']:.3f} GB, "
+                        f"memory {json.dumps(rec['mem_gb'])}; collective bytes "
+                      + json.dumps({k: v for k, v in rec.items() if k.startswith("coll_")}))
     arch, shape = DRYRUN_CLI
     path = os.path.join(out_dir, "results", "dryrun", f"{arch}__{shape}__mp__dense.json")
     require(os.path.exists(path), f"dryrun (c): launch.train --dry-run wrote no {path}")
@@ -3194,18 +3412,62 @@ def dryrun_anchor(device):
                 f"dryrun (b) {kind}: the card's peak is {ratio:.4f} x the estimate")
 
 
+def flop_anchor(device):
+    """(d): whole h2o-danube-1.8b's dense train step at (1, 4096) on the
+    card under ``FlopCounterMode`` against the dry-run's fake trace of the
+    same step (equal), ``costing.corrected_costs`` from 1 and 2 layers
+    (within FLOP_ANCHOR_RTOL), and the achieved rate of a warm run."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.costing import corrected_costs
+
+    cfg = get_config(ARCH)
+    kind, seq = ANCHOR_RUNS[0]
+    shape = InputShape(kind, seq, 1, kind)
+    fake = dr.trace_step(lambda: dr.build_single_step(cfg, shape, "full", "cuda"),
+                         cost=True)["cost"]["flops"]
+    t0 = time.perf_counter()
+    cc = corrected_costs(cfg, None, shape, device="cuda")["corrected"]["flops"]
+    cc_s = time.perf_counter() - t0
+    free_cached(device)
+    step = dr.build_single_step(cfg, shape, "full", device)
+    anchor_fill(step, cfg, device)
+    step.run()                                            # warm
+    with FlopCounterMode(display=False) as fc:
+        step.run()
+    real = fc.get_total_flops()
+    ms = cuda_ms(step.run, reps=3, warmup=0)
+    del step
+    free_cached(device)
+    require(real == fake, f"dryrun (d): the card's step counts {real} flops, the fake trace "
+                          f"{fake}")
+    rel = abs(cc - real) / real
+    require(rel <= FLOP_ANCHOR_RTOL, f"dryrun (d): corrected_costs {cc} vs {real} ({rel:.4g})")
+    rate = real / (ms * 1e-3)
+    log("dryrun", f"(d) flop anchor, {ARCH} whole dense train step at (1, {seq}): "
+                  f"FlopCounterMode on the card {real} flops == the fake trace's {fake}; "
+                  f"corrected_costs from 1 and 2 layers {cc:.0f} ({rel:.3g} off, <= "
+                  f"{FLOP_ANCHOR_RTOL}; {cc_s:.2f} s host); the step {ms:.2f} ms (CUDA events, "
+                  f"median of 3 warm runs): {rate / 1e12:.2f} TFLOP/s achieved of "
+                  f"{H100_PEAK_FLOPS / 1e12:.1f} peak dense bf16 ({rate / H100_PEAK_FLOPS:.3f})")
+
+
 def phase_dryrun(device):
-    """The dry-run (ROADMAP Queue 1, item 8b): (a) and (c) in subprocesses
-    while (b) runs on the card in this process; no kernel of the repo runs
-    (the dry-run's B1 is its registered fake)."""
+    """The dry-run (ROADMAP Queue 1, items 8b, 8c): (a), (c) and (e) in
+    subprocesses while (b) and (d) run on the card in this process; no
+    kernel of the repo runs (the dry-run's B1 is its registered fake)."""
     t_phase = time.perf_counter()
     out_dir = tempfile.mkdtemp()
     procs = dryrun_subprocesses(out_dir)
     try:
         dryrun_anchor(device)
-        check_dryrun_cells(*procs, out_dir)
+        flop_anchor(device)
+        check_dryrun_cells(procs, out_dir, t_phase)
     finally:
-        for p in procs:
+        for p in procs.values():
             if p.poll() is None:
                 p.kill()
                 p.communicate()
@@ -3557,6 +3819,7 @@ def main():
     phase_longctx(device)
     dp_launches = phase_dp(device)
     require(dp_launches > 0, "B1 quant_dequant_2d was not launched on the dp path")
+    phase_ep(device)
     phase_dryrun(device)
     # each kernel's launches on the paths that exercise it (B1: serve + train +
     # arch + archtrain + dp; B2: serve + train + cohort + arch + archtrain; B3:

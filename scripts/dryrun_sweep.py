@@ -6,10 +6,13 @@ Cells: every config x ``train_4k`` and x ``decode_32k`` (dense), mamba2-2.7b
 x ``train_4k`` under efbv, and danube / mamba2 x ``prefill_32k``.  Each
 record lands under ``--out``; one summary line per cell (status, trace_s,
 the process's wall seconds, per-rank argument and peak bytes, collective
-counts) is printed and written to ``summary.txt`` there.
+counts) is printed and written to ``summary.txt`` there.  ``--cells``
+runs the named cells only (``arch/shape/sync``, comma-separated).
 
 Usage:
   python scripts/dryrun_sweep.py --workers 6 --out results/dryrun_sweep
+  python scripts/dryrun_sweep.py --workers 3 --out results/moe \
+      --cells dbrx-132b/train_4k/dense,jamba-1.5-large-398b/train_4k/dense
 """
 import argparse
 import json
@@ -53,12 +56,14 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--out", default="results/dryrun_sweep")
+    ap.add_argument("--cells", default="", help="arch/shape/sync,...; empty = every cell")
     args = ap.parse_args()
+    cells = [tuple(c.split("/")) for c in args.cells.split(",") if c] or CELLS
     os.makedirs(args.out, exist_ok=True)
     t0 = time.time()
     with ThreadPoolExecutor(args.workers) as ex:
         lines = []
-        for line in ex.map(lambda c: one(c, args.out), CELLS):
+        for line in ex.map(lambda c: one(c, args.out), cells):
             print(line, flush=True)
             lines.append(line)
     tail = f"wall {time.time() - t0:.1f} s, {args.workers} workers"

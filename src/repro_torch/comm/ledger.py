@@ -2,10 +2,10 @@
 ``repro/comm/ledger.py``): one record per message, or per streamed chunk, on
 one link, the tag registry, the per-round/link/kind/tag aggregates and the
 round-time model over a ``comm.topology.Topology`` preset (a model of that
-preset's links, not a time measured on the card).  The JAX package's
-``crosscheck_hlo`` compares the ledger with XLA HLO collective statistics,
-which have no counterpart here: it waits for the multi-GPU slice (ROADMAP,
-Queue 1, item 8).
+preset's links, not a time measured on the card).  ``crosscheck_hlo``
+compares the ledger's bytes with the collective payloads of a traced step
+(``launch.hlo_analysis.CollectiveStats``, the port's counterpart of the
+reference's HLO statistics; Queue 1, item 8c).
 """
 from __future__ import annotations
 
@@ -153,3 +153,25 @@ class CommLedger:
         kinds = ";".join(f"{k}={v}" for k, v in sorted(self.bytes_by_kind().items()))
         return (f"rounds={self.n_rounds()} msgs={len(self.records)} "
                 f"bytes={self.total_bytes} ({kinds})")
+
+
+# ---------------------------------------------------------------------------
+# Cross-check against a traced step's collectives
+# ---------------------------------------------------------------------------
+def crosscheck_hlo(ledger: CommLedger, stats, rel_tol: float = 0.25) -> dict:
+    """Compare ledger totals with ``launch.hlo_analysis.CollectiveStats``
+    (the reference's keys).  The stats count the per-rank collective
+    payload of one traced step; the ledger counts encoded message bytes.
+    They agree when the step's collectives carry the encoded planes and
+    diverge when compression is only modeled: the ratio is the audit
+    number."""
+    hlo_total = float(stats.total_bytes)
+    led_total = float(ledger.total_bytes)
+    ratio = led_total / hlo_total if hlo_total > 0 else float("inf")
+    return {
+        "ledger_bytes": led_total,
+        "hlo_bytes": hlo_total,
+        "hlo_inter_pod_bytes": float(stats.inter_pod_bytes),
+        "ratio": ratio,
+        "consistent": hlo_total > 0 and abs(ratio - 1.0) <= rel_tol,
+    }

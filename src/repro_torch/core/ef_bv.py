@@ -115,9 +115,14 @@ def efbv_gd(x0: torch.Tensor, grad_fn: Callable, state: EFBVState, c: Compressor
 # h_i lives on the worker; h_bar is replicated (the same mean on every
 # worker keeps it consistent).
 # ---------------------------------------------------------------------------
+def _compressor_call(c: Compressor):
+    return lambda li, x, noise, generator: c(x, noise=noise, generator=generator)
+
+
 def efbv_sync_worker(grad_tree, h_tree, h_bar_tree, c: Compressor, lam: float,
                      nu: float, group=None, noise=None,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None,
+                     compress: Optional[Callable] = None):
     """Per-worker EF-BV sync over the ``torch.distributed`` process group
     ``group`` (default: the world), each rank one worker.
 
@@ -130,17 +135,23 @@ def efbv_sync_worker(grad_tree, h_tree, h_bar_tree, c: Compressor, lam: float,
     same mean as ``core.distributed.efbv_sync`` does over a stacked group
     axis, bit for bit; an ``all_reduce`` would sum in the backend's order.
     Returns (g_est_tree, new_h_tree, new_h_bar_tree), new tensors (the
-    inputs are not changed), each update the source's two operations."""
+    inputs are not changed), each update the source's two operations.
+
+    ``compress(li, x, noise, generator)`` (default: ``c`` on ``x``) takes
+    the place of the compressor call on leaf li's f32 delta: a rank that
+    holds a shard of each leaf compresses the whole leaf and returns its own
+    shard of the result (``training.steps``' per-rank steps)."""
     import torch.distributed as dist
 
+    compress = compress or _compressor_call(c)
     leaves, treedef = tree_flatten(grad_tree)
     h_leaves = tree_flatten(h_tree)[0]
     hb_leaves = tree_flatten(h_bar_tree)[0]
     world = dist.get_world_size(group)
     g_est, new_h, new_hb = [], [], []
     for li, (g, h, hb) in enumerate(zip(leaves, h_leaves, hb_leaves)):
-        d_i = c((g - h).float(), noise=None if noise is None else noise[li],
-                generator=generator).contiguous()
+        d_i = compress(li, (g - h).float(), None if noise is None else noise[li],
+                       generator).contiguous()
         gathered = d_i.new_empty((world,) + tuple(d_i.shape))
         dist.all_gather(list(gathered.unbind(0)), d_i, group=group)
         d = group_mean(gathered)
@@ -153,21 +164,23 @@ def efbv_sync_worker(grad_tree, h_tree, h_bar_tree, c: Compressor, lam: float,
 
 
 def param_sync_worker(param_tree, h_bar_tree, c: Compressor, lam: float, group=None,
-                      noise=None, generator: Optional[torch.Generator] = None):
+                      noise=None, generator: Optional[torch.Generator] = None,
+                      compress: Optional[Callable] = None):
     """Per-worker form of one round of ``core.distributed.hier_param_sync``
     over the process group ``group``, each rank one replica: per leaf,
     ``h_bar += lam * mean_i C(p_i - h_bar)`` (the mean an ``all_gather``
     summed in rank order, as ``efbv_sync_worker``'s) and the replica adopts
     ``h_bar`` (``param_tree`` is written in place).  Returns the new h_bar
-    tree."""
+    tree.  ``compress`` as ``efbv_sync_worker``'s."""
     import torch.distributed as dist
 
+    compress = compress or _compressor_call(c)
     leaves, treedef = tree_flatten(param_tree)
     world = dist.get_world_size(group)
     new_hb = []
     for li, (p, hb) in enumerate(zip(leaves, tree_flatten(h_bar_tree)[0])):
-        d_i = c(p.float() - hb, noise=None if noise is None else noise[li],
-                generator=generator).contiguous()
+        d_i = compress(li, p.float() - hb, None if noise is None else noise[li],
+                       generator).contiguous()
         gathered = d_i.new_empty((world,) + tuple(d_i.shape))
         dist.all_gather(list(gathered.unbind(0)), d_i, group=group)
         hb = hb + lam * group_mean(gathered)

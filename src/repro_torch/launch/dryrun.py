@@ -27,15 +27,15 @@ input; ``output_size_in_bytes``; ``peak_bytes`` from ``MemTracker``;
 ``temp_size_in_bytes`` = peak - arguments) and ``collectives``, counts by
 kind.  ``host_state`` names the reference's int32 / key leaves that the
 port keeps on the host (step counters, the PRNG key, the cache position),
-with their bytes on the reference's devices.  Flops, bytes accessed and
-the collectives' payloads belong to the costing (ROADMAP Queue 1, item
-8c) and are not guessed here.
+with their bytes on the reference's devices.  Flops, bytes and the
+collectives' payloads are the costing's (``launch.costing``,
+``launch.hlo_analysis``).
 
-MoE train (dense, hier) and prefill cells take the reference's shard_map
-expert parallelism, which the port does not have yet: they are recorded
-``not_ported`` (Queue 1, item 8, part 8d); ``set_moe_impl_override
-("scatter")`` runs them on the scatter dispatch, as it does in the
-reference.  Decode keeps the scatter dispatch and runs.
+MoE train (dense, hier) and prefill cells take the reference's
+expert-parallel dispatch, ``models.moe.moe_ffn_shardmap`` (Queue 1, item
+8d); ``set_moe_impl_override("alltoall")`` takes ``moe_ffn_alltoall`` and
+``("scatter")`` the scatter dispatch, as in the reference.  efbv / local
+and decode keep the scatter dispatch.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch h2o-danube-1.8b --shape train_4k
@@ -61,10 +61,6 @@ from repro_torch.utils.logging import get_logger
 from repro_torch.utils.tree import tree_flatten, tree_map
 
 log = get_logger("dryrun")
-
-NOT_PORTED = ("shard_map expert-parallel MoE is not ported (ROADMAP.md Queue 1, "
-              "item 8: multi-GPU, part 8d)")
-
 
 def auto_grad_accum(cfg, shape, n_data: int, width_shards: int = 16) -> int:
     """Microbatch count so remat residuals + logits fit HBM: scale with the
@@ -223,8 +219,6 @@ def _install_moe(cfg, mesh, impl):
     if impl is None:
         ctx.set_moe_specs(None)
         return
-    if impl == "shardmap":
-        raise NotImplementedError(NOT_PORTED)
     ctx.set_moe_specs({"impl": impl, "mesh": mesh, "data_axes": rules.data_axes(mesh),
                        "gather_quant": ctx.get_moe_gather_quant(),
                        "tokens": (None, "model"), "expanded": (None, "model"),
@@ -251,11 +245,11 @@ def build_train_step(cfg, mesh, shape, sync_mode="dense", compressor="qsgd",
     if sync_mode == "dense":
         ctx.set_grad_specs(specs["state"]["params"], mesh)
         act = ((daxes + ("model",), None, None) if rules.NO_TP else (dax, None, "model"))
-        ctx.set_named_specs({"act": act}, mesh)
+        ctx.add_named_specs({"act": act}, mesh)
     else:
         ctx.set_grad_specs(None)
         # the per-rank steps run on the sub-mesh a group owns
-        ctx.set_named_specs({"act": ("data", None, "model") if sync_mode == "hier"
+        ctx.add_named_specs({"act": ("data", None, "model") if sync_mode == "hier"
                              else (None, None, "model")},
                             layout.sub_mesh(mesh, layout.group_axes(mesh, sync_mode)))
     inputs = {"state": distribute_tree(metas["state"], specs["state"], mesh, device),
@@ -281,7 +275,7 @@ def build_prefill_step(cfg, mesh, shape, device=None) -> Step:
 
     device = device or fake_device()
     daxes = rules.data_axes(mesh)
-    ctx.set_named_specs({"act": (_dax(daxes), None, "model")}, mesh)
+    ctx.add_named_specs({"act": (_dax(daxes), None, "model")}, mesh)
     ctx.set_grad_specs(None)
     _install_moe(cfg, mesh, _moe_impl(cfg))
     params = init_params(0, cfg, device="meta")
@@ -413,11 +407,14 @@ def _local_mem_tracker(mode):
     return LocalMemTracker()
 
 
-def trace_step(build: Callable, fake: bool = True) -> dict:
+def trace_step(build: Callable, fake: bool = True, cost: bool = False) -> dict:
     """Build and run one step under ``FakeTensorMode``, ``MemTracker`` and
     ``CommDebugMode`` -> the record's ``trace_s``, ``memory`` and
     ``collectives``.  ``fake=False`` runs the same on the real tensors
-    ``build`` makes (the check of the fake estimate)."""
+    ``build`` makes (the check of the fake estimate).  ``cost=True`` traces
+    under ``hlo_analysis.CostCounter``'s fake mode and adds ``cost`` (flops
+    and the unfused bytes bound of rank 0's local ops) and
+    ``collective_stats`` (their payloads by kind)."""
     from contextlib import nullcontext
 
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -425,13 +422,23 @@ def trace_step(build: Callable, fake: bool = True) -> dict:
     from torch.distributed.tensor.debug import CommDebugMode
     from torch.distributed.tensor.experimental import implicit_replication
 
+    from repro_torch.launch.hlo_analysis import CostCounter
+
     t0 = wall_s()
+    named = ctx.named_specs_state()       # a perf variant's, kept across traces
     saved = {n: ShardingPropagator.__dict__[n] for n in _PROPAGATORS
              if n in ShardingPropagator.__dict__}
     for n, fn in saved.items():
         setattr(ShardingPropagator, n, _marking_propagation(fn))
+    counter = CostCounter(paused=lambda: _PROPAGATING.depth > 0) if cost else None
+    if not fake:
+        fake_mode = nullcontext()
+    elif cost:
+        fake_mode = counter.mode(allow_non_fake_inputs=True)
+    else:
+        fake_mode = FakeTensorMode(allow_non_fake_inputs=True)
     try:
-        with FakeTensorMode(allow_non_fake_inputs=True) if fake else nullcontext() as mode:
+        with fake_mode as mode:
             step = build()
             args = nbytes(step.inputs)
             mt = _local_mem_tracker(mode)
@@ -446,12 +453,15 @@ def trace_step(build: Callable, fake: bool = True) -> dict:
         for n, fn in saved.items():
             setattr(ShardingPropagator, n, fn)
         ctx.set_grad_specs(None)
-        ctx.set_named_specs(None)
+        ctx.restore_named_specs(named)
         ctx.set_moe_specs(None)
-    return {"trace_s": round(wall_s() - t0, 2),
-            "memory": {"argument_size_in_bytes": args, "output_size_in_bytes": out_bytes,
-                       "peak_bytes": int(peak), "temp_size_in_bytes": int(peak) - args},
-            "collectives": counts, "spec_host": step.host}
+    rec = {"trace_s": round(wall_s() - t0, 2),
+           "memory": {"argument_size_in_bytes": args, "output_size_in_bytes": out_bytes,
+                      "peak_bytes": int(peak), "temp_size_in_bytes": int(peak) - args},
+           "collectives": counts, "spec_host": step.host}
+    if cost:
+        rec.update(cost=counter.cost_dict(), collective_stats=counter.stats.as_dict())
+    return rec
 
 
 def init_fake_group(world: int) -> None:
@@ -500,11 +510,6 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, sync_mode: str = "dense
         build = lambda: build_decode_step(cfg, mesh, shape)  # noqa: E731
     try:
         got = trace_step(build)
-    except NotImplementedError as e:
-        if "Queue 1, item 8" not in str(e):
-            raise
-        rec.update(status="not_ported", reason=str(e))
-        return rec
     except Exception as e:  # noqa: BLE001 -- record and continue the sweep
         rec.update(status="error", error=f"{type(e).__name__}: {e}",
                    traceback=traceback.format_exc()[-2000:])

@@ -185,11 +185,11 @@ def mamba_forward(params, u, cfg, d_model: int, return_cache: bool = False):
     xBC = _causal_conv(params, xBC_raw, cfg)
     x, B_, C_ = torch.split(xBC, [di, G * N, G * N], dim=-1)
     # optional SSD head sharding: keeps the intra-chunk tensors model-sharded
-    # over heads where a launcher installed the "ssd_x" spec
+    # over heads where a launcher installed the "ssd_x" and "ssd_dt" specs
     x = constrain_named("ssd_x", x.reshape(Bsz, S, H, cfg.head_dim))
     B_ = B_.reshape(Bsz, S, G, N)
     C_ = C_.reshape(Bsz, S, G, N)
-    dt = F.softplus(dt.float() + params["dt_bias"])
+    dt = constrain_named("ssd_dt", F.softplus(dt.float() + params["dt_bias"]))
     A = -torch.exp(params["a_log"])
 
     chunk = min(cfg.chunk_size, S)

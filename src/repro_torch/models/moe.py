@@ -13,8 +13,13 @@ the card repeats itself bit for bit.
 The dispatcher reads the MoE specs a launcher installed
 (``sharding.context.set_moe_specs``), as the reference's does; without any,
 the scatter path runs, its tensors passing through ``constrain_moe`` at the
-reference's points.  The expert-parallel paths (``moe_ffn_alltoall``,
-``moe_ffn_shardmap``) over a device mesh are not ported yet; they raise.
+reference's points.  The expert-parallel paths over a device mesh
+(``moe_ffn_shardmap``, ``moe_ffn_alltoall``; ``repro/models/moe.py:136-352``)
+run on DTensors: each rank's part runs in ``local_map`` on its local
+tensors, and the reference's ``lax.all_gather`` / ``all_to_all`` / ``psum``
+/ ``pmean`` over the mesh axes are functional collectives
+(``torch.distributed._functional_collectives``) over the axes' process
+groups, which also trace under ``FakeTensorMode`` on a ``fake`` group.
 """
 from __future__ import annotations
 
@@ -29,31 +34,22 @@ from repro_torch.sharding import layout
 from repro_torch.sharding.context import constrain_moe, get_moe_specs
 from repro_torch.sharding.layout import AnyDTensor
 
-MESH_TODO = ("expert-parallel MoE over a device mesh is not ported "
-             "(ROADMAP.md Queue 1, item 8: multi-GPU, part 8d)")
-
 
 def moe_apply(params: dict, x: torch.Tensor, specs: Optional[dict] = None,
               **kw) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dispatcher: ``specs`` (default: what a launcher installed with
     ``sharding.context.set_moe_specs``, ``{"impl": "alltoall" | "shardmap",
-    "mesh": ..., ...}``) picks an expert-parallel path; without one, the
-    single-device scatter path."""
+    "gather_quant": ...}``) picks an expert-parallel path, which runs on
+    the mesh of the DTensor ``x`` (the reference passes the launcher's mesh
+    and data axes; a per-rank step's sub-mesh is the one to use); without
+    specs, the single-device scatter path."""
     if specs is None:
         specs = get_moe_specs()
     if specs and specs.get("impl") == "alltoall":
         return moe_ffn_alltoall(params, x, **kw)
     if specs and specs.get("impl") == "shardmap":
-        return moe_ffn_shardmap(params, x, **kw)
+        return moe_ffn_shardmap(params, x, gather_quant=specs.get("gather_quant", False), **kw)
     return moe_ffn(params, x, **kw)
-
-
-def moe_ffn_alltoall(params: dict, x: torch.Tensor, **kw):
-    raise NotImplementedError(f"moe_ffn_alltoall: {MESH_TODO}")
-
-
-def moe_ffn_shardmap(params: dict, x: torch.Tensor, **kw):
-    raise NotImplementedError(f"moe_ffn_shardmap: {MESH_TODO}")
 
 
 def init_moe(gen, d_model: int, d_ff: int, num_experts: int, gated: bool,
@@ -70,16 +66,18 @@ def init_moe(gen, d_model: int, d_ff: int, num_experts: int, gated: bool,
     return p
 
 
-def _expert_ffn(p: dict, x: torch.Tensor, act: str, gated: bool) -> torch.Tensor:
-    """x (E, C, d) -> (E, C, d), batched over the experts.  As the
-    reference: gated experts take silu for "silu", else gelu; ungated ones
-    squared ReLU for "relu2", else silu."""
-    h = torch.bmm(x, p["w_in"])
+def _ffn_act(h: torch.Tensor, g, act: str, gated: bool) -> torch.Tensor:
+    """As the reference: gated experts take silu for "silu", else gelu (tanh)
+    of the gate times ``h``; ungated ones squared ReLU for "relu2", else silu."""
     if gated:
-        g = torch.bmm(x, p["w_gate"])
-        h = (F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")) * h
-    else:
-        h = torch.square(F.relu(h)) if act == "relu2" else F.silu(h)
+        return (F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")) * h
+    return torch.square(F.relu(h)) if act == "relu2" else F.silu(h)
+
+
+def _expert_ffn(p: dict, x: torch.Tensor, act: str, gated: bool) -> torch.Tensor:
+    """x (E, C, d) -> (E, C, d), batched over the experts."""
+    h = torch.bmm(x, p["w_in"])
+    h = _ffn_act(h, torch.bmm(x, p["w_gate"]) if gated else None, act, gated)
     return torch.bmm(h, p["w_out"])
 
 
@@ -105,15 +103,22 @@ def route(router: torch.Tensor, xt: torch.Tensor, num_experts: int, top_k: int,
     gates; capacity ``C = max(1, int(T*K*cf/E))`` (``T`` with ``no_drop``)
     and each assignment's rank within its expert (stable sort +
     ``searchsorted``)."""
-    T, E, K = xt.shape[0], num_experts, top_k
-    probs = torch.softmax(xt.float() @ router, dim=-1)
+    return route_logits(xt.float() @ router, num_experts, top_k, capacity_factor, no_drop)
+
+
+def route_logits(logits: torch.Tensor, num_experts: int, top_k: int,
+                 capacity_factor: float, no_drop: bool = False) -> Routing:
+    """``route`` from the f32 router logits (T, E)."""
+    T, E, K = logits.shape[0], num_experts, top_k
+    device = logits.device
+    probs = torch.softmax(logits, dim=-1)
     gate_w, gate_i = torch.topk(probs, K, dim=-1)
     gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
     C = T if no_drop else max(1, int(T * K * capacity_factor / E))
     flat_e = gate_i.reshape(-1)
     sorted_e, sort_idx = torch.sort(flat_e, stable=True)
-    first_pos = torch.searchsorted(sorted_e, torch.arange(E, device=xt.device))
-    rank_sorted = torch.arange(T * K, device=xt.device) - first_pos[sorted_e]
+    first_pos = torch.searchsorted(sorted_e, torch.arange(E, device=device))
+    rank_sorted = torch.arange(T * K, device=device) - first_pos[sorted_e]
     rank = torch.empty_like(rank_sorted).scatter_(0, sort_idx, rank_sorted)
     return Routing(probs, gate_w, gate_i, rank, rank < C, C)
 
@@ -139,6 +144,14 @@ def moe_ffn(params: dict, x: torch.Tensor, *, num_experts: int, top_k: int,
     return combined.reshape(B, S, d), aux
 
 
+def _counts(r: Routing, E: int) -> torch.Tensor:
+    """Assignments per expert (E,) f32: whole numbers, so exact in any
+    order; a shape that does not depend on the data, unlike ``bincount``."""
+    flat = r.gate_i.reshape(-1)
+    return torch.zeros(E, dtype=torch.float32, device=flat.device).index_add_(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32, device=flat.device))
+
+
 def _dispatch(params: dict, x: torch.Tensor, E: int, K: int, capacity_factor: float,
               act: str, gated: bool, no_drop: bool, experts=None):
     """The routed experts of ``moe_ffn`` -> (their combined output (T, d),
@@ -149,14 +162,10 @@ def _dispatch(params: dict, x: torch.Tensor, E: int, K: int, capacity_factor: fl
     T = B * S
     xt = constrain_moe("tokens", x.reshape(T, d))
     r = route(params["router"], xt, E, K, capacity_factor, no_drop)
-    # whole numbers in f32, so exact in any order; a shape that does not
-    # depend on the data, unlike ``bincount``
-    flat = r.gate_i.reshape(-1)
-    counts = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
-        0, flat, torch.ones(flat.shape, dtype=torch.float32, device=x.device))
+    counts = _counts(r, E)
 
     C = r.capacity
-    flat_e, keep = flat, r.keep
+    flat_e, keep = r.gate_i.reshape(-1), r.keep
     if experts is not None:
         e0, E = experts
         keep = keep & (flat_e >= e0) & (flat_e < e0 + E)
@@ -252,4 +261,293 @@ def _sharded_moe_ffn(params: dict, x, *, num_experts: int, top_k: int,
     rep = [Replicate()] * mesh.ndim
     aux = E * torch.sum(psum.redistribute(mesh, rep)
                         * (counts.redistribute(mesh, rep) / (B * S * K)))
+    return y, aux
+
+
+# ---------------------------------------------------------------------------
+# The expert-parallel paths over a mesh (``repro/models/moe.py:136-352``).
+# ---------------------------------------------------------------------------
+def _wait(t):
+    import torch.distributed._functional_collectives as funcol
+    return funcol.wait_tensor(t)
+
+
+class _SumReplicated(torch.autograd.Function):
+    """``psum`` of a value that every rank of the group then uses alike:
+    each rank's cotangent is already the whole one, so the backward is the
+    identity."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed._functional_collectives as funcol
+        return _wait(funcol.all_reduce(x, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumPartial(torch.autograd.Function):
+    """``psum`` of a value each rank of the group then uses in its own way
+    (its own d-slice): the cotangents are partial, so the backward sums them."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed._functional_collectives as funcol
+        ctx.group = group
+        return _wait(funcol.all_reduce(x, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed._functional_collectives as funcol
+        return _wait(funcol.all_reduce(g.contiguous(), "sum", ctx.group)), None
+
+
+class _MeanReplicated(torch.autograd.Function):
+    """``pmean`` over a group of a value every rank then uses alike: the sum
+    over the group divided by its size; the backward divides each rank's
+    whole cotangent by the size."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        import torch.distributed._functional_collectives as funcol
+        ctx.n = n
+        return _wait(funcol.all_reduce(x, "sum", group)) / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None, None
+
+
+def _all_gather_last(x, group):
+    """(T, d / n) -> (T, d): the group's d-slices side by side, in rank order
+    (``lax.all_gather(..., axis=1, tiled=True)``); the backward sums each
+    rank's cotangent of the whole and keeps this rank's slice."""
+    import torch.distributed._functional_collectives as funcol
+    # torch 2.13 renamed the autograd all-gather (the old name warns there)
+    gather = getattr(funcol, "all_gather_single_autograd", funcol.all_gather_tensor_autograd)
+    return _wait(gather(x.contiguous(), 1, group))
+
+
+def _all_to_all(x, group):
+    """``lax.all_to_all(x, axis, 0, 0, tiled=False)`` of x (n, rows, w):
+    block i goes to rank i, and block j of the result came from rank j."""
+    import torch.distributed._functional_collectives as funcol
+    n = x.shape[0]
+    out = _wait(funcol.all_to_all_single_autograd(x.reshape(-1, x.shape[-1]).contiguous(),
+                                                  None, None, group))
+    return out.reshape(n, -1, x.shape[-1])
+
+
+def _lead_grad(x, lead: bool):
+    """``x`` with its gradient kept on the lead rank only: a value every
+    rank of "model" computes alike (the aux loss) feeds back once."""
+    return x.detach() + (x - x.detach()) * float(lead)
+
+
+def _aux_loss(r: Routing, E: int, K: int) -> torch.Tensor:
+    """The Switch load-balance loss of this rank's tokens."""
+    T = r.probs.shape[0]
+    return E * torch.sum(r.probs.mean(0) * (_counts(r, E) / (T * K)))
+
+
+def _expert_axis(mesh):
+    """The mesh facts both paths need: (the "model" size, this rank's model
+    coordinate, the model and data process groups, the data size)."""
+    names = layout.mesh_axis_names(mesh)
+    daxes = layout.data_axes(mesh)
+    n_data = 1
+    for a in daxes:
+        n_data *= mesh.size(names.index(a))
+    mgroup = mesh.get_group(layout.MODEL) if layout.MODEL in names else None
+    dgroup = layout.process_group(mesh, daxes) if daxes else None
+    return layout.model_size(mesh), layout.model_coordinate(mesh), mgroup, dgroup, n_data
+
+
+def _mesh_of(x):
+    if not isinstance(x, AnyDTensor):
+        raise ValueError("the expert-parallel MoE paths take a DTensor input on the mesh")
+    return x.device_mesh
+
+
+def _weight_leaves(params, mesh, B: int, e_sh: bool):
+    """(placements, gradient placements) of router, w_in, w_gate, w_out:
+    the router replicated, its gradient partial over the batch shards and
+    "model"; the experts sharded over "model" on their expert dim where E
+    divides (else replicated, their gradients partial over "model"), their
+    gradients partial over the batch shards."""
+    rpl = layout.local_placements(mesh)
+    rgrad = layout.local_placements(mesh, B, partial_batch=True, partial_model=True)
+    wpl = layout.local_placements(mesh, model_dim=0 if e_sh else None)
+    wgrad = layout.local_placements(mesh, B, partial_batch=True,
+                                    model_dim=0 if e_sh else None, partial_model=not e_sh)
+    w_gate = params.get("w_gate", params["w_in"])       # a placeholder when ungated
+    return ((params["router"], params["w_in"], w_gate, params["w_out"]),
+            (rpl, wpl, wpl, wpl), (rgrad, wgrad, wgrad, wgrad))
+
+
+def moe_ffn_shardmap(params: dict, x, *, num_experts: int, top_k: int,
+                     capacity_factor: float, act: str, gated: bool, shared_expert: bool,
+                     gather_quant: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert parallelism with the tokens replicated over "model"
+    (``repro/models/moe.py:246-352``) of a DTensor ``x`` (B, S, d) on its
+    mesh (data axes "pod" / "data" and "model"): each rank gathers its
+    tokens' d-slices over "model" (an all-gather), or
+    with ``gather_quant`` their per-token absmax int8 codes and f32 scales
+    (``round``, in plain torch as the reference's jnp), routes them
+    (capacity ``C = max(1, int(T_loc*K*cf/E))`` of its local token count),
+    runs its own E / n_model experts, each through a (C + 1)-row buffer
+    whose last row is the trash slot, and sums their weighted outputs per
+    token in f32; the combine is a ``psum`` over "model" (in bf16 under
+    ``gather_quant``) and the aux loss the ``pmean`` over the data axes of
+    each rank's statistic.  The shared expert runs on the DTensors outside,
+    as the reference's runs outside its ``shard_map``."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = _mesh_of(x)
+    B, S, d = x.shape
+    E, K = num_experts, top_k
+    n_model, mc, mgroup, dgroup, n_data = _expert_axis(mesh)
+    assert E % n_model == 0 or n_model % E == 0, (E, n_model)
+    e_per = max(1, E // n_model)
+    e_sh = E % n_model == 0
+    d_sh = mgroup is not None and layout.divides(d, layout.MODEL, mesh)
+    if gather_quant and not d_sh:
+        raise ValueError(f"gather_quant needs d={d} split over 'model' ({n_model})")
+    lead = mc == 0
+
+    def gather(xt):
+        """(T_loc, d / n_model) my d-shard -> (T_loc, d)."""
+        if not gather_quant:
+            return _all_gather_last(xt, mgroup)
+        xf = xt.float()
+        scale = xf.abs().amax(dim=1, keepdim=True) / 127.0
+        scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+        q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
+        qg = _all_gather_last(q, mgroup)                      # int8 on the wire
+        sg = _all_gather_last(scale, mgroup)                  # (T_loc, n_model)
+        dsh = xt.shape[1]
+        out = qg.reshape(qg.shape[0], n_model, dsh).float() * sg[:, :, None]
+        return out.reshape(qg.shape[0], n_model * dsh).to(xt.dtype)
+
+    def local(xl, router, w_in, w_gate, w_out):
+        xt = xl.reshape(-1, xl.shape[-1])
+        if d_sh:
+            xt = gather(xt)
+        T_loc = xt.shape[0]
+        r = route(router, xt, E, K, capacity_factor)
+        C = r.capacity
+        aux = _lead_grad(_aux_loss(r, E, K), lead)
+        if dgroup is not None:
+            aux = _MeanReplicated.apply(aux, dgroup, n_data)
+        flat_e = r.gate_i.reshape(-1)
+        token_of = torch.arange(T_loc, device=xt.device).repeat_interleave(K)
+        wk_all = r.gate_w.reshape(-1)
+        rows = xt[token_of]
+        combined = torch.zeros((T_loc, d), dtype=torch.float32, device=xt.device)
+        for j in range(e_per):
+            e_id = mc * e_per + j
+            # a rank past the last expert (n_model > E) owns none: its part
+            # is scaled by 0, not skipped, so every rank's graph stays alike
+            own = float(e_id < E)
+            w = j if e_sh else min(e_id, E - 1)
+            mine = r.keep & (flat_e == e_id)
+            buf = xt.new_zeros((C + 1, d))
+            buf[torch.where(mine, r.rank, C)] = rows               # C: the trash slot
+            h = buf[:C] @ w_in[w]
+            h = _ffn_act(h, buf[:C] @ w_gate[w] if gated else None, act, gated)
+            y = h @ w_out[w]                                       # (C, d)
+            contrib = (y[r.rank.clamp_max(C - 1)] * (wk_all * mine)[:, None] * own
+                       ).float().view(T_loc, K, d)
+            for k in range(K):
+                combined = combined + contrib[:, k]
+        if mgroup is not None:
+            combined = _SumReplicated.apply(
+                combined.to(torch.bfloat16) if gather_quant else combined, mgroup)
+        return combined.to(x.dtype).reshape(xl.shape[:-1] + (d,)), aux
+
+    weights, wpl, wgrad = _weight_leaves(params, mesh, B, e_sh)
+    xpl = layout.local_placements(mesh, B, model_dim=2 if d_sh else None)
+    ypl = layout.local_placements(mesh, B)
+    y, aux = local_map(
+        local, out_placements=(ypl, layout.local_placements(mesh)),
+        in_placements=(xpl,) + wpl, in_grad_placements=(xpl,) + wgrad,
+        device_mesh=mesh, redistribute_inputs=True)(x, *weights)
+    if shared_expert:
+        y = y + mlp(params["shared"], x, act=act, gated=gated)
+    return y, aux
+
+
+def moe_ffn_alltoall(params: dict, x, *, num_experts: int, top_k: int,
+                     capacity_factor: float, act: str, gated: bool, shared_expert: bool
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert parallelism with the tokens d-sharded all the way
+    (``repro/models/moe.py:136-231``): each rank's partial router logits of
+    its d-slice are summed over "model" (``psum``), so every rank routes
+    alike; each rank buckets its d-slice of every routed row by expert into
+    an (E, C, d / n_model) send buffer, one all-to-all brings each rank the
+    whole rows of its own E / n_model experts, it runs them, a second
+    all-to-all returns each source its d-slice of the outputs, and the
+    combine adds them into an f32 (T_loc, d / n_model) one expert at a
+    time.  The aux loss is the ``pmean`` over the data axes of each rank's
+    statistic.  ``x`` as ``moe_ffn_shardmap``'s."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = _mesh_of(x)
+    B, S, d = x.shape
+    E, K = num_experts, top_k
+    n_model, mc, mgroup, dgroup, n_data = _expert_axis(mesh)
+    assert E % n_model == 0, (E, n_model)
+    e_per = E // n_model
+    if mgroup is None or not layout.divides(d, layout.MODEL, mesh):
+        raise ValueError(f"moe_ffn_alltoall needs d={d} split over a 'model' axis")
+    dsh = d // n_model
+    lead = mc == 0
+
+    def local(xl, router, w_in, w_gate, w_out):
+        xt = xl.reshape(-1, dsh)
+        T_loc = xt.shape[0]
+        logits = xt.float() @ router[mc * dsh:(mc + 1) * dsh]
+        logits = _SumPartial.apply(logits, mgroup)
+        r = route_logits(logits, E, K, capacity_factor)
+        C = r.capacity
+        aux = _lead_grad(_aux_loss(r, E, K), lead)
+        if dgroup is not None:
+            aux = _MeanReplicated.apply(aux, dgroup, n_data)
+        flat_e = r.gate_i.reshape(-1)
+        token_of = torch.arange(T_loc, device=xt.device).repeat_interleave(K)
+        rows = xt[token_of]
+        bufs = []
+        for e_id in range(E):                  # my d-slice of each expert's rows
+            mine = r.keep & (flat_e == e_id)
+            buf = xt.new_zeros((C + 1, dsh))
+            buf[torch.where(mine, r.rank, C)] = rows               # C: the trash slot
+            bufs.append(buf[:C])
+        send = torch.stack(bufs).reshape(n_model, e_per * C, dsh)
+        recv = _all_to_all(send, mgroup)
+        # recv[j]: d-slice j of my experts' rows -> whole rows
+        full = recv.transpose(0, 1).reshape(e_per, C, n_model * dsh)
+        h = torch.bmm(full, w_in)
+        h = _ffn_act(h, torch.bmm(full, w_gate) if gated else None, act, gated)
+        y = torch.bmm(h, w_out)                                    # (e_per, C, d)
+        yb = y.reshape(e_per * C, n_model, dsh).transpose(0, 1)
+        back = _all_to_all(yb, mgroup).reshape(E, C, dsh)
+        combined = torch.zeros((T_loc, dsh), dtype=torch.float32, device=xt.device)
+        wk_all = r.gate_w.reshape(-1)
+        slot = r.rank.clamp_max(C - 1)
+        for e_id in range(E):                  # one expert at a time, as the reference
+            mine = r.keep & (flat_e == e_id)
+            contrib = (back[e_id][slot].float() * (wk_all * mine)[:, None]).view(T_loc, K, dsh)
+            for k in range(K):
+                combined = combined + contrib[:, k]
+        return combined.to(x.dtype).reshape(xl.shape), aux
+
+    weights, wpl, wgrad = _weight_leaves(params, mesh, B, True)
+    xpl = layout.local_placements(mesh, B, model_dim=2)
+    y, aux = local_map(
+        local, out_placements=(xpl, layout.local_placements(mesh)),
+        in_placements=(xpl,) + wpl, in_grad_placements=(xpl,) + wgrad,
+        device_mesh=mesh, redistribute_inputs=True)(x, *weights)
+    if shared_expert:
+        y = y + mlp(params["shared"], x, act=act, gated=gated)
     return y, aux

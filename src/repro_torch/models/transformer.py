@@ -31,6 +31,7 @@ from repro_torch.models.layers import (_dense_init, along, apply_rope,
                                        init_embed, init_mlp, init_rmsnorm, mlp,
                                        project_out, rmsnorm, unembed)
 from repro_torch.sharding.context import constrain_named
+from repro_torch.sharding.layout import AnyDTensor
 from repro_torch.utils.device import make_generator, resolve_device
 from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -218,7 +219,21 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int, enc_len: int = 0) ->
 
 
 def _period(blocks: dict, i: int) -> dict:
-    return tree_map(lambda a: a[i], blocks)
+    return tree_map(lambda a: _grad_as_placed(a[i]), blocks)
+
+
+def _grad_as_placed(t):
+    """A DTensor period slice whose gradient takes the slice's own
+    placements as soon as the backward makes it: an FSDP weight's gradient
+    leaves its matmul whole over the data axes (a partial sum), and, kept
+    so until the step's end, every period's whole gradient would be live
+    at once; this reduce-scatters each one as it comes.  Plain tensors and
+    slices that take no gradient pass through."""
+    if isinstance(t, AnyDTensor) and t.requires_grad:
+        mesh, placements = t.device_mesh, t.placements
+        t.register_hook(lambda g: g if g.placements == placements
+                        else g.redistribute(mesh, placements))
+    return t
 
 
 def _ring_from_prefill(kv: dict, cfg_attn: dict, S: int, cache_len: int) -> dict:

@@ -72,6 +72,23 @@ def set_named_specs(specs: Optional[dict], mesh=None) -> None:
     _NAMED_SPECS = {k: (s, mesh) for k, s in (specs or {}).items()}
 
 
+def add_named_specs(specs: dict, mesh) -> None:
+    """Install ``specs`` ({name: spec}) on ``mesh`` beside those already
+    installed (a launcher's activation spec beside a perf variant's)."""
+    _NAMED_SPECS.update({k: (s, mesh) for k, s in specs.items()})
+
+
+def named_specs_state() -> dict:
+    """What ``set_named_specs`` / ``add_named_specs`` installed, for
+    ``restore_named_specs``."""
+    return dict(_NAMED_SPECS)
+
+
+def restore_named_specs(state: dict) -> None:
+    global _NAMED_SPECS
+    _NAMED_SPECS = dict(state)
+
+
 def constrain_named(name: str, x):
     got = _NAMED_SPECS.get(name)
     if got is None:

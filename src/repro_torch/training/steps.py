@@ -22,11 +22,15 @@ own group's (replica's) gradient on its own batch shard, on the sub-mesh
 its group owns, and the groups meet in ``core.ef_bv``'s workers over the
 process group of the group axes (``efbv_sync_worker``,
 ``param_sync_worker``), as the reference's partitioned program maps its
-group axis onto the data axes.  A rank compresses its own shard of a leaf
-over "model"; where that shard is the whole leaf ("model" of size 1) or
-the compressor works element by element, the step equals the
-single-process one, and ``noise`` (nested as the single-process per-leaf
-sync's, ``noise[li][i]`` for group i) replays its draws.
+group axis onto the data axes.  The compressor sees each leaf whole, as
+the reference's does: a rank gathers one leaf's f32 delta over its
+group's sub-mesh, compresses it, keeps its own shard of the result and
+sends only that shard to the other groups.  Every rank of a group draws
+alike, from the group's generator (seeded from the state generator's
+seed and the group's index on the first step); ``noise`` (nested as the
+single-process per-leaf sync's, ``noise[li][i]`` for group i) replays the
+single-process draws, so the step equals the single-process one for any
+compressor.
 
 A step is ``step(state, batch, survivors=None, noise=None) -> (state,
 metrics)``.  Its draws come from ``TrainState.generator``; ``noise`` (a
@@ -147,6 +151,26 @@ def _gathered_over(x, mesh, axes):
     from torch.distributed.tensor import Replicate
     return x.redistribute(mesh, [Replicate() if a in axes else p
                                  for a, p in zip(mesh.mesh_dim_names, x.placements)])
+
+
+def _whole_leaf_compress(c, likes):
+    """The ``compress`` hook of ``core.ef_bv``'s workers for a rank that
+    holds shards: leaf li's local delta, laid out as the DTensor
+    ``likes[li]`` on its sub-mesh, is gathered whole there, compressed, and
+    this rank's shard of the result returned (a slice: no communication)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    def compress(li, x, noise, generator):
+        like = likes[li]
+        mesh = like.device_mesh
+        whole = DTensor.from_local(x, mesh, like.placements, run_check=False,
+                                   shape=like.shape, stride=like.stride()).full_tensor()
+        d = c(whole, noise=noise, generator=generator)
+        del whole
+        return DTensor.from_local(d, mesh, [Replicate()] * mesh.ndim, run_check=False
+                                  ).redistribute(mesh, like.placements).to_local()
+
+    return compress
 
 
 def _group_mean(x, group):
@@ -320,11 +344,25 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_groups: int, n_pods: in
         def lz(x, drop_lead=False):
             return _localize(x, mesh, g_axes, g_sub, drop_lead)
 
+        group_gen = []
+
+        def group_generator(state):
+            """This group's generator, made on the first step from the state
+            generator's seed and the group index: every rank of the group
+            draws the same uniforms for a leaf, each group its own."""
+            if not group_gen:
+                seed = (state.generator.initial_seed() * 1_000_003 + gi) % (1 << 63)
+                group_gen.append(torch.Generator(device=state.generator.device)
+                                 .manual_seed(seed))
+            return group_gen[0]
+
     def efbv_rank_step(state: TrainState, batch, survivors=None, noise=None):
         """This rank's group: its batch shard, the params gathered over the
         data axes (tensor-parallel over ``"model"`` only), one backward,
-        then ``efbv_sync_worker`` leaf by leaf over the data axes' group."""
+        then ``efbv_sync_worker`` leaf by leaf over the data axes' group,
+        each leaf's delta compressed whole."""
         from torch.distributed.tensor import DTensor
+        gen = group_generator(state)
         params = tree_map(lambda p: lz(_gathered_over(p, mesh, g_axes)), state.params)
         with obs_trace.span("step/grad"):
             loss, parts, grads = grad_fn(params, {k: lz(v) for k, v in batch.items()})
@@ -334,20 +372,22 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_groups: int, n_pods: in
         with obs_trace.span("step/sync"):
             for li, (g, p, h, hb) in enumerate(zip(*(tree_flatten(t)[0] for t in (
                     grads, state.params, st.h, st.h_bar)))):
-                g = g.redistribute(g.device_mesh, lz(p).placements).to_local()
+                like = g.redistribute(g.device_mesh, lz(p).placements)
+                g = like.to_local()
                 h_i = lz(h, drop_lead=True).to_local()
                 hb_full = _gathered_over(hb, mesh, g_axes)
                 ge, nh, nhb = efbv_sync_worker(
                     [g], [h_i], [lz(hb_full).to_local()], compressor,
-                    lam, nu, group=group, generator=state.generator,
-                    noise=None if noise is None else [noise[li][gi]])
+                    lam, nu, group=group, generator=gen,
+                    noise=None if noise is None else [noise[li][gi]],
+                    compress=_whole_leaf_compress(compressor, [like]))
                 h_i.copy_(nh[0])
                 back = [DTensor.from_local(t[0], mesh, hb_full.placements, run_check=False,
                                            shape=hb.shape, stride=hb.stride())
                         .redistribute(mesh, p.placements) for t in (ge, nhb)]
                 hb.to_local().copy_(back[1].to_local())
                 g_est.append(back[0])
-                del g, ge, nh, nhb, hb_full, back
+                del g, ge, nh, nhb, hb_full, back, like
         grads = tree_unflatten(tree_flatten(state.params)[1], g_est)
         with obs_trace.span("step/apply"):
             opt_state, gnorm = clip_and_step(grads, state.opt_state, state.params)
@@ -361,7 +401,8 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_groups: int, n_pods: in
         """This rank's replica (its index on the replica axes: "pod" for
         hier, the data axes for local): a local step on the sub-mesh the
         replica owns, in place, then, in a round where the sync fires,
-        ``param_sync_worker`` over the replica axes' group."""
+        ``param_sync_worker`` over the replica axes' group, each leaf
+        compressed whole over the replica's sub-mesh."""
         rep = lambda t: lz(t, drop_lead=True)                          # noqa: E731
         params = tree_map(rep, state.params)
         st_r = OptState(state.opt_state.step, tree_map(rep, state.opt_state.mu),
@@ -380,8 +421,9 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_groups: int, n_pods: in
                 local = lambda t: t.to_local()                          # noqa: E731
                 new_hb = param_sync_worker(
                     tree_map(local, params), tree_map(local, h_bar), compressor, lam,
-                    group=group, generator=state.generator,
-                    noise=None if noise is None else [n[gi] for n in noise])
+                    group=group, generator=group_generator(state),
+                    noise=None if noise is None else [n[gi] for n in noise],
+                    compress=_whole_leaf_compress(compressor, tree_flatten(params)[0]))
                 for hb, n in zip(tree_flatten(h_bar)[0], tree_flatten(new_hb)[0]):
                     hb.to_local().copy_(n)
                 del new_hb

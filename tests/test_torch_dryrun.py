@@ -14,10 +14,16 @@ and ``.dryrun`` vs ``repro.launch.specs`` and ``.dryrun``).
   equal XLA's ``argument_size_in_bytes`` exactly.  The port's side runs on
   the ``fake`` backend at world 8, in a subprocess (no process group leaks
   into other tests).
-* MoE train and prefill cells are ``not_ported`` (item 8); the scatter
-  override runs them.  A ``qsgd_kernel`` efbv dry-run traces B1 through
-  its registered fake op and never its plain version.  The ``MemTracker``
-  peak of a fake step equals the real CPU run's.
+* Reduced dbrx (MoE) is among the parity cells under ``dense`` train
+  (the expert-parallel ``moe_ffn_shardmap``) and prefill on both meshes.
+  MoE train and prefill cells trace ``ok`` through ``moe_ffn_shardmap``
+  (Queue 1, item 8d), and through the scatter dispatch under the
+  ``scatter`` override; reduced llama4 (its 16 experts kept) at
+  ``train_4k`` on the fake 512-rank (2, 16, 16) production mesh is ``ok``
+  with all-gathers and all-reduces, and with all-to-alls under the
+  ``moe_a2a`` perf variant's ``alltoall`` override.  A ``qsgd_kernel`` efbv dry-run traces B1
+  through its registered fake op and never its plain version.  The
+  ``MemTracker`` peak of a fake step equals the real CPU run's.
 """
 import json
 import os
@@ -48,7 +54,8 @@ MESHES = {"2x2x2": ((2, 2, 2), ("pod", "data", "model")), "4x2": ((4, 2), ("data
 KINDS = {"2x2x2": ("dense", "efbv", "hier", "local", "prefill", "decode"),
          "4x2": ("dense", "efbv", "local", "prefill", "decode")}
 CELLS = ([(a, m, k) for a in PARITY_ARCHS for m in MESHES for k in KINDS[m]]
-         + [(MOE_ARCH, m, "decode") for m in MESHES])
+         + [(MOE_ARCH, m, k) for m in MESHES for k in ("dense", "prefill", "decode")])
+A2A_ARCH = "llama4-scout-17b-a16e"
 SHAPES = {"train": (32, 8), "prefill": (32, 8), "decode": (64, 8)}
 # the reference's input leaves the port keeps on the host, by its path
 HOST_LEAVES = {"state.opt_state.step": "opt_state/step",
@@ -183,7 +190,8 @@ for arch, mesh_name, kind in {cells!r}:
     for f in (ctx.set_grad_specs, ctx.set_named_specs, ctx.set_moe_specs):
         f(None)
 
-# MoE train / prefill: not ported; the scatter override runs them
+# MoE train / prefill through the expert-parallel dispatch, and the scatter
+# override
 moe = get_config("{moe}").reduced()
 mesh = meshes["2x2x2"]
 out["moe"] = {{k: dr.run_one("{moe}", k, False, "dense", mesh=mesh, cfg=moe,
@@ -217,6 +225,19 @@ with FakeTensorMode():
 out["b1_fake_calls"] = Count.n
 for f in (ctx.set_grad_specs, ctx.set_named_specs, ctx.set_moe_specs):
     f(None)
+
+# reduced llama4 (with the full config's 16 experts: alltoall needs E to
+# divide over "model") at train_4k on the fake 512-rank production mesh,
+# then under the alltoall override (the moe_a2a variant)
+from dataclasses import replace
+a2a = get_config("{a2a}").reduced()
+a2a = replace(a2a, moe=replace(a2a.moe, num_experts=get_config("{a2a}").moe.num_experts))
+out["prod"] = {{"shardmap": dr.run_one("{a2a}", "train_4k", True, cfg=a2a)}}
+ctx.set_moe_impl_override("alltoall")
+try:
+    out["prod"]["alltoall"] = dr.run_one("{a2a}", "train_4k", True, cfg=a2a)
+finally:
+    ctx.set_moe_impl_override(None)
 print(json.dumps(out, default=str))
 """
 
@@ -247,7 +268,7 @@ def sides(tmp_path_factory):
                                                     table=i == 0, **fmt),
                  {"JAX_PLATFORMS": "cpu"})
             for i in range(N_REF_PROCS)]
-    port = _run(tmp, "port.py", PORT_SIDE.format(cells=CELLS, moe=MOE_ARCH, **fmt))
+    port = _run(tmp, "port.py", PORT_SIDE.format(cells=CELLS, moe=MOE_ARCH, a2a=A2A_ARCH, **fmt))
     ref = {"cells": {}}
     for i, p in enumerate(refs):
         got = _wait(p)
@@ -363,13 +384,29 @@ def test_placements_and_argument_bytes_equal_the_reference(sides, cell):
 
 
 def test_moe_train_and_prefill_are_not_ported(sides):
+    """Were ``not_ported`` until Queue 1, item 8d: now every MoE train and
+    prefill cell traces ``ok`` through the expert-parallel dispatch (whose
+    token gather and combine are an all-gather and an all-reduce), and
+    under the scatter override."""
     _, port = sides
     for kind, rec in port["moe"].items():
-        assert rec["status"] == "not_ported", kind
-        assert "Queue 1, item 8" in rec["reason"], kind
+        assert rec["status"] == "ok", (kind, rec.get("error"))
+        assert rec["collectives"].get("all_gather_into_tensor", 0) > 0, (kind, rec)
+        assert rec["collectives"].get("all_reduce", 0) > 0, (kind, rec)
     scatter = port["moe_scatter"]
     assert scatter["status"] == "ok", scatter.get("error")
     assert sum(scatter["collectives"].values()) > 0
+
+
+@pytest.mark.parametrize("impl", ["shardmap", "alltoall"])
+def test_moe_train_4k_on_the_fake_512_rank_mesh(sides, impl):
+    _, port = sides
+    rec = port["prod"][impl]
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["mesh"] == "2x16x16"
+    counts = rec["collectives"]
+    assert counts.get("all_gather_into_tensor", 0) > 0 and counts.get("all_reduce", 0) > 0
+    assert (counts.get("all_to_all_single", 0) > 0) == (impl == "alltoall"), counts
 
 
 def test_qsgd_kernel_dry_run_traces_b1_through_its_fake(sides):

@@ -6,12 +6,12 @@ temporary directory, never a port).
   hooked by ``launch.dryrun.build_train_step``, take two steps of reduced
   h2o-danube-1.8b from the single-process state; params, AdamW moments, h,
   h_bar and the losses equal the single-process ``efbv_step`` /
-  ``local_step``'s (per-leaf sync, ``bucket_size=0``) within atol 1e-5.  A
-  rank compresses its own tensor-parallel shard of a leaf, so the
-  stochastic ``rand_k`` runs where "model" has size 1 (each shard the
-  whole leaf) with the single-process draws replayed; the tensor- and
-  FSDP-sharded layouts run ``identity``, whose result does not depend on
-  the shard.  Both are continuous in the gradient: the sharded loss and
+  ``local_step``'s (per-leaf sync, ``bucket_size=0``) within atol 1e-5.
+  The stochastic ``rand_k`` runs where "model" has size 1 with the
+  single-process draws replayed; the tensor- and FSDP-sharded layouts run
+  ``identity`` (a rank compresses each leaf whole, which
+  ``tests/test_torch_tp_compress.py`` holds on split leaves with ``qsgd``
+  and ``top_k``).  Both are continuous in the gradient: the sharded loss and
   norms sum in another order than one process, and a quantizer's rounding
   would turn those float-level differences into whole levels.  Both runs
   use plain SGD (AdamW's normalized step would do the same to near-zero

@@ -300,12 +300,16 @@ def test_moe_matches_dense_expert_sum():
 
 @pytest.mark.parametrize("impl", ["alltoall", "shardmap"])
 def test_moe_apply_on_a_mesh_raises_naming_item_8(impl):
+    """The expert-parallel paths (Queue 1, item 8d) run on a DTensor input
+    on the launcher's mesh (``tests/test_torch_moe_ep.py``); handed a plain
+    tensor they raise rather than fall back to the scatter path.  Without
+    specs the dispatcher takes the scatter path."""
     params = _port_moe(4, 8, 16, 0)
     x = torch.zeros((1, 4, 8))
     kw = dict(num_experts=4, top_k=1, capacity_factor=1.0, act="silu", gated=True,
               shared_expert=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 8"):
-        tmoe.moe_apply(params, x, specs={"impl": impl, "mesh": None}, **kw)
+    with pytest.raises(ValueError, match="DTensor input"):
+        tmoe.moe_apply(params, x, specs={"impl": impl}, **kw)
     y, _ = tmoe.moe_apply(params, x, **kw)                 # no mesh: the scatter path
     assert torch.equal(y, tmoe.moe_ffn(params, x, **kw)[0])
 
