@@ -203,8 +203,9 @@ the script exits nonzero without printing a result:
            gloo groups), four full-width cells on the production meshes:
            h2o-danube-1.8b x train_4k x (16, 16) dense, qwen1.5-110b x
            decode_32k x (2, 16, 16) (FSDP serving), mamba2-2.7b x
-           long_500k x (16, 16) and llama4-scout-17b-a16e x train_4k x
-           (16, 16) (the expert-parallel shardmap MoE); each must be ok,
+           long_500k x (16, 16), llama4-scout-17b-a16e x train_4k x
+           (16, 16) (the expert-parallel shardmap MoE) and h2o-danube-1.8b
+           x long_500k x (16, 16) (the SWA ring cache); each must be ok,
            with its trace seconds, per-rank argument and peak bytes and
            collective counts printed.  (b) The memory anchor on the card:
            whole h2o-danube-1.8b, a dense train step at (1, 4096), remat
@@ -224,8 +225,11 @@ the script exits nonzero without printing a result:
            danube train_4k at baseline and sync_efbv, llama4 train_4k at
            baseline, moe_a2a and moe_quant, mamba2 prefill_32k under
            ssd_heads; each record's roofline terms, memory, collective
-           bytes and trace seconds beside the direct cell's.  (a), (c) and
-           (e) run while (b) and (d) do
+           bytes and trace seconds beside the direct cell's.  (f) python -m
+           repro_torch.launch.serve --arch h2o-danube-1.8b --dry-run --shape
+           long_500k (a subprocess) must write a record equal to (a)'s
+           direct one of the same cell in every field but trace_s.  (a),
+           (c), (e) and (f) run while (b) and (d) do
   timing   B1-B3 and B6 (beside B2) at the serve path's shape, B4/B5 at the
            codec path's d, and B7/B8 (both modes, three score modes) at one
            full-width w_in (2560 x 6912 bf16) on the card (CUDA events,
@@ -362,7 +366,8 @@ EP_PATHS = ("shardmap", "shardmap gather_quant", "alltoall")
 EP_RTOL = 2e-2
 # the dry-run's full-width cells on the fake backend: (arch, shape, multi-pod)
 DRYRUN_CELLS = (("h2o-danube-1.8b", "train_4k", False), ("qwen1.5-110b", "decode_32k", True),
-                ("mamba2-2.7b", "long_500k", False), ("llama4-scout-17b-a16e", "train_4k", False))
+                ("mamba2-2.7b", "long_500k", False), ("llama4-scout-17b-a16e", "train_4k", False),
+                ("h2o-danube-1.8b", "long_500k", False))
 # perf records (launch.perf) on the fake backend: (arch, shape, variants)
 PERF_RECORDS = (("h2o-danube-1.8b", "train_4k", ""), ("h2o-danube-1.8b", "train_4k", "sync_efbv"),
                 ("llama4-scout-17b-a16e", "train_4k", ""),
@@ -372,6 +377,7 @@ PERF_RECORDS = (("h2o-danube-1.8b", "train_4k", ""), ("h2o-danube-1.8b", "train_
 FLOP_ANCHOR_RTOL = 0.01       # corrected_costs' flops vs the direct count
 H100_PEAK_FLOPS = 989.4e12    # dense bf16 (launch.mesh.PEAK_FLOPS_BF16)
 DRYRUN_CLI = ("h2o-danube-1.8b", "decode_32k")     # through launch.train --dry-run --multi-pod
+SERVE_DRYRUN_CLI = ("h2o-danube-1.8b", "long_500k")  # through launch.serve --dry-run, == (a)'s
 ANCHOR_RUNS = (("train", 4096), ("prefill", 8192))  # (kind, seq) at batch 1, remat full
 ANCHOR_RANGE = (0.8, 1.25)    # max_memory_allocated / the dry-run's estimate
 # from the phase's start: the llama4 train_4k traces took 356-471 s of host
@@ -3276,8 +3282,8 @@ print(json.dumps(rec))
 
 
 def dryrun_subprocesses(out_dir):
-    """(a), (c) and (e) of the dryrun phase, started together, one process
-    each: -> {name: Popen}."""
+    """(a), (c), (e) and (f) of the dryrun phase, started together, one
+    process each: -> {name: Popen}."""
     env = dict(os.environ, PYTHONPATH=SRC)
 
     def start(*argv):
@@ -3293,6 +3299,9 @@ def dryrun_subprocesses(out_dir):
         procs[f"(e) {i}"] = start("-m", "repro_torch.launch.perf", "--arch", arch, "--shape",
                                   shape, "--variants", variants, "--out",
                                   os.path.join(out_dir, f"perf{i}.json"))
+    arch, shape = SERVE_DRYRUN_CLI
+    procs["(f)"] = start("-m", "repro_torch.launch.serve", "--arch", arch, "--dry-run",
+                         "--shape", shape)
     return procs
 
 
@@ -3306,8 +3315,9 @@ def dryrun_record_line(rec):
 
 
 def check_dryrun_cells(procs, out_dir, t_start):
-    """Wait for (a), (c) and (e); every cell, the CLI's record and every
-    perf record must be ok."""
+    """Wait for (a), (c), (e) and (f); every cell, the CLIs' records and
+    every perf record must be ok, and (f)'s record equal to (a)'s direct
+    one of its cell in every field but trace_s."""
     outs = {}
     for name, p in procs.items():
         try:
@@ -3319,12 +3329,13 @@ def check_dryrun_cells(procs, out_dir, t_start):
             raise SmokeFailure(f"dryrun {name}: not done {DRYRUN_JOIN_S} s after the phase's start")
         require(p.returncode == 0, f"dryrun {name} exited {p.returncode}: {err[-3000:]}")
         outs[name] = out
-    traces = {}
+    traces, cells = {}, {}
     for i in range(len(DRYRUN_CELLS)):
         rec = json.loads(outs[f"(a) {i}"].strip().splitlines()[-1])
         require(rec["status"] == "ok", f"dryrun (a) {rec['arch']} x {rec['shape']}: "
                                        f"{rec['status']}: {rec.get('error') or rec.get('reason')}")
         traces[(rec["arch"], rec["shape"])] = rec["trace_s"]
+        cells[(rec["arch"], rec["shape"], rec["mesh"])] = rec
         log("dryrun", "(a) " + dryrun_record_line(rec))
     for i, (arch, shape, variants) in enumerate(PERF_RECORDS):
         with open(os.path.join(out_dir, f"perf{i}.json")) as f:
@@ -3347,6 +3358,18 @@ def check_dryrun_cells(procs, out_dir, t_start):
         rec = json.load(f)
     require(rec["status"] == "ok", f"dryrun (c): {rec['status']}: {rec.get('error')}")
     log("dryrun", "(c) launch.train --dry-run --multi-pod: " + dryrun_record_line(rec))
+    arch, shape = SERVE_DRYRUN_CLI
+    path = os.path.join(out_dir, "results", "dryrun", f"{arch}__{shape}__sp__dense.json")
+    require(os.path.exists(path), f"dryrun (f): launch.serve --dry-run wrote no {path}")
+    with open(path) as f:
+        rec = json.load(f)
+    require(rec["status"] == "ok", f"dryrun (f): {rec['status']}: {rec.get('error')}")
+    want = cells[(arch, shape, rec["mesh"])]
+    diff = sorted(k for k in set(rec) | set(want)
+                  if k != "trace_s" and rec.get(k) != want.get(k))
+    require(not diff, f"dryrun (f): launch.serve's record differs from run_one's in {diff}")
+    log("dryrun", f"(f) launch.serve --dry-run --shape {shape}: " + dryrun_record_line(rec)
+        + f"; equal to (a)'s run_one record but for trace_s ({want['trace_s']} s there)")
 
 
 def anchor_fill(step, cfg, device):

@@ -16,10 +16,12 @@ from repro_torch.comm.codecs import (DEFAULT_TILE, Chunk, Payload, PayloadError,
                                      validate_payload, verify_payload)
 from repro_torch.comm.ledger import (BROADCAST_TAG, PAGE_IN_TAG, PAGE_OUT_TAG,
                                      RETRY_TAG, UPLOAD_TAG, WIRE_SCHEME_TAGS,
-                                     CommLedger, CommRecord, known_tags,
-                                     register_tag)
+                                     CommLedger, CommRecord, crosscheck_hlo,
+                                     known_tags, register_tag)
 from repro_torch.comm.topology import (DEFAULT_PROFILE, DEFAULT_TILE_BYTES,
                                        PRESETS, CodecProfile, Link, Topology,
-                                       get_topology)
+                                       get_topology, norm_ppf, pipelined_time_s,
+                                       ring_parts_s, ring_time_s,
+                                       straggler_level_time_s, stream_pipeline_s)
 from repro_torch.comm.tree import (TREE_PRESETS, TreeLevel, TreeTopology,
                                    get_tree_topology, register_tree_topology)

@@ -9,6 +9,7 @@ defaults), the dry-run's ``InputShape`` table ``INPUT_SHAPES``, and
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field, replace
 from typing import Optional, Sequence, Tuple
 
@@ -287,3 +288,6 @@ def _ensure_loaded():
                                      nemotron_4_15b, qwen1_5_4b, qwen1_5_110b,
                                      seamless_m4t_large_v2)
 
+
+def asdict(cfg) -> dict:
+    return dataclasses.asdict(cfg)

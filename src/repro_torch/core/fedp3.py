@@ -78,6 +78,10 @@ def xent(layers, x, y, nclass):
     return -logp.gather(1, y[:, None]).mean()
 
 
+def layer_sizes(layers: List[dict]) -> List[int]:
+    return [int(l["W"].numel() + l["b"].numel()) for l in layers]
+
+
 # ---------------------------------------------------------------------------
 # Pruning operators
 # ---------------------------------------------------------------------------

@@ -7,12 +7,19 @@
 Weights are random, from ``--seed``; so are the encoder's frame embeddings
 (encoder-decoder configs) and the vision stub's patch embeddings (vision
 configs), each from its own seeded generator.  Logits are trimmed to
-``vocab_size`` before the argmax.  (The JAX launcher's ``--dry-run`` is TPU
-tooling and is not ported.)
+``vocab_size`` before the argmax.  ``--dry-run`` hands the process over to
+``repro_torch.launch.dryrun`` for the arch, the serving ``--shape``
+(default ``decode_32k``) and the mesh (``--multi-pod``: the (2, 16, 16)
+one), as the reference does and as ``launch.train --dry-run`` does.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+      --dry-run --shape decode_32k --multi-pod      # writes results/dryrun/
 """
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 
 import numpy as np
 import torch
@@ -62,6 +69,12 @@ def side_inputs(cfg, batch: int, seed: int, device, src_len: int = 16) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", default="decode_32k",
+                    choices=["prefill_32k", "decode_32k", "long_500k"],
+                    help="input shape for --dry-run")
+    ap.add_argument("--dry-run", action="store_true",
+                    help="trace the serving step on the production mesh instead of running")
+    ap.add_argument("--multi-pod", action="store_true", help="the mesh for --dry-run")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--gen", type=int, default=32)
@@ -69,6 +82,13 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device; default: the CUDA card")
     args = ap.parse_args(argv)
+
+    if args.dry_run:
+        os.execv(sys.executable, [
+            sys.executable, "-m", "repro_torch.launch.dryrun",
+            "--arch", args.arch, "--shape", args.shape,
+            "--multi-pod", "multi" if args.multi_pod else "single",
+        ])
 
     from repro_torch.configs import get_config
     from repro_torch.models import init_params

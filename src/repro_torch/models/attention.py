@@ -407,16 +407,30 @@ def _sharded_flash(q, k, v, kind, window, chunk, q_offset, block_q, block_k):
                      redistribute_inputs=True)(q, k, v)
 
 
-def attention_prefill(params, x, *, cfg_attn: dict):
-    """Causal attention over the whole prompt -> (output, cache{k, v}); the
-    training forward too (under autograd, through the tiled backward)."""
+def _attention_causal(params, x, cfg_attn: dict, positions=None):
+    """Causal attention over the whole sequence -> (output, k, v), the
+    queries and keys rotated at ``positions`` (default ``arange(S)``)."""
     B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device)[None, :]
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(params, x, cfg_attn["num_heads"], cfg_attn["num_kv_heads"],
                            cfg_attn["head_dim"], cfg_attn["qk_norm"], cfg_attn["use_rope"],
                            positions, cfg_attn["rope_theta"])
     out = _flash_attention(q, k, v, cfg_attn["kind"], cfg_attn["window"], cfg_attn["chunk"])
-    out = project_out(merge_heads(out), params["wo"])
+    return project_out(merge_heads(out), params["wo"]), k, v
+
+
+def attention_train(params, x, *, cfg_attn: dict, positions=None):
+    """cfg_attn keys: num_heads num_kv_heads head_dim kind window chunk
+    qk_norm use_rope rope_theta; ``positions`` (1 or B, S) rotate q and k
+    (the masks stay on the sequence index, as the reference's)."""
+    return _attention_causal(params, x, cfg_attn, positions)[0]
+
+
+def attention_prefill(params, x, *, cfg_attn: dict):
+    """Causal attention over the whole prompt -> (output, cache{k, v}); the
+    training forward too (under autograd, through the tiled backward)."""
+    out, k, v = _attention_causal(params, x, cfg_attn)
     return out, {"k": k, "v": v}
 
 

@@ -139,6 +139,20 @@ def whole_grad(x: torch.Tensor) -> torch.Tensor:
     return _WholeGrad.apply(x) if isinstance(x, AnyDTensor) else x
 
 
+def residual_add(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """``x + h``.  On DTensors, where ``h`` is a partial sum over a mesh dim
+    (a row-parallel projection's output), its sums are first reduced to
+    ``x``'s placement on that dim (all-reduced where ``x`` is replicated,
+    reduce-scattered where it is sharded); ``x`` is never redistributed.
+    Stated here, not left to DTensor's choice of strategy, which differs
+    between torch versions: 2.11 may turn a sharded ``x`` into a partial
+    sum, a redistribution it does not support."""
+    if not isinstance(h, AnyDTensor) or not any(p.is_partial() for p in h.placements):
+        return x + h
+    to = [xp if hp.is_partial() else hp for xp, hp in zip(x.placements, h.placements)]
+    return x + h.redistribute(h.device_mesh, to)
+
+
 def project_out(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``h @ w`` for an output projection (row-parallel under tensor
     parallelism).  On DTensors its gradient arrives with the feature dim

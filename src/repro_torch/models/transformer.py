@@ -29,7 +29,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (_dense_init, along, apply_rope,
                                        cross_entropy_loss, embed, features_whole,
                                        init_embed, init_mlp, init_rmsnorm, mlp,
-                                       project_out, rmsnorm, unembed)
+                                       project_out, residual_add, rmsnorm, unembed)
 from repro_torch.sharding.context import constrain_named
 from repro_torch.sharding.layout import AnyDTensor
 from repro_torch.utils.device import make_generator, resolve_device
@@ -432,7 +432,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: dict):
                 h, _ = attn_lib.attention_decode(
                     bp["attn"], h, {"k": lc["k"][i], "v": lc["v"][i]}, pos,
                     cfg_attn=acfgs[j], bias=biases[j])
-            x = x + h
+            x = residual_add(x, h)
             if cfg.cross_attn and enc_memory is not None:
                 x = x + _cross_attention(bp["xattn"], rmsnorm(bp["norm_x"], x, cfg.norm_eps),
                                          enc_memory, cfg)

@@ -20,16 +20,16 @@ Differences that change no value:
 """
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.utils import tree as tree_lib
 from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
 _F32 = torch.float32
-SLICE_ELEMS = 1 << 26    # elements per in-place slice of a leaf in ``step``
+SLICE_ELEMS = tree_lib.SLICE_ELEMS    # elements per in-place slice of a leaf in ``step``
 
 
 class OptState(NamedTuple):
@@ -48,20 +48,10 @@ class Optimizer:
     step: Callable    # (grads, state, params, scale) -> new_state
 
 
-def _sum_squares(x: torch.Tensor) -> torch.Tensor:
-    """f32 sum of squares of one leaf, ``_slices`` at a time: a leaf wider
-    than SLICE_ELEMS (mamba2-2.7b's stacked ``in_proj``, 1.73e9 elements)
-    never gets whole f32 temporaries, which cost 12 B an element."""
-    parts = [(s.float() * s.float()).sum() for s in (x[sl] for sl in _slices(x))]
-    return functools.reduce(torch.add, parts[1:], parts[0])
-
-
 def tree_norm(tree) -> torch.Tensor:
-    """Euclidean norm of the concatenated tree: per-leaf sums of squares in
-    f32, added in leaf order (``repro.utils.tree.tree_norm``)."""
-    parts = [_sum_squares(x) for x in tree_flatten(tree)[0]]
-    first = parts[0].new_zeros(())
-    return torch.sqrt(functools.reduce(torch.add, parts, first))
+    """``utils.tree.tree_norm`` in this module's ``SLICE_ELEMS`` slices: the
+    grad norm of ``clip_by_global_norm`` and of the train step."""
+    return tree_lib.tree_norm(tree, SLICE_ELEMS)
 
 
 def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -78,13 +68,9 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 def _slices(t: torch.Tensor):
-    """Views of ``t`` along its first axis, about SLICE_ELEMS each."""
-    if t.dim() == 0 or t.numel() <= SLICE_ELEMS:
-        yield slice(None)
-        return
-    per = max(1, SLICE_ELEMS // max(1, t[0].numel()))
-    for i in range(0, t.shape[0], per):
-        yield slice(i, i + per)
+    """Index slices of ``t`` along its first axis, about SLICE_ELEMS
+    elements each."""
+    return tree_lib.leaf_slices(t, SLICE_ELEMS)
 
 
 def _bias_corrections(b1: float, b2: float, step: int):

@@ -281,3 +281,50 @@ def test_hooks_on_a_4_rank_gloo_group(tmp_path):
         assert res["gathered"] == [["R", "R"], True]
         assert res["moe"] == [["S0", "R"], ["R", "R"]]
         assert res["named"] == ["R", "S2"]
+
+
+def test_residual_add_reduces_a_partial_sum_to_the_residual_placement(tmp_path):
+    """``layers.residual_add`` on a (2, 2) ("data", "model") gloo mesh: a
+    row-parallel output, partial over "model", is all-reduced onto a
+    replicated residual and reduce-scattered onto one sharded over the
+    feature dim; the residual keeps its placement and the sum is bit for bit
+    ``x + (p0 + p1)`` (the
+    decode add that torch 2.11 could not place on the (2, 16, 16) mesh)."""
+    out = _run_script(tmp_path, """
+        import torch.distributed as dist
+        import torch.multiprocessing as mp
+
+        def rank_main(rank, store):
+            from torch.distributed.device_mesh import init_device_mesh
+            from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                                  distribute_tensor)
+            from repro_torch.models.layers import residual_add
+            dist.init_process_group("gloo", init_method=store, rank=rank, world_size=4)
+            pl = lambda t: [f"S{p.dim}" if p.is_shard() else "P" if p.is_partial() else "R"
+                            for p in t.placements]
+            mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+            g = torch.Generator().manual_seed(0)
+            x = torch.randn(1, 1, 8, generator=g)
+            parts = torch.randn(2, 1, 1, 8, generator=g)     # one partial term per model rank
+            m = mesh.get_local_rank("model")
+            h_local = parts[m].chunk(2, dim=2)[mesh.get_local_rank("data")]
+            h = DTensor.from_local(h_local, mesh, [Shard(2), Partial()], run_check=False)
+            res = {}
+            for name, xp in (("rep", [Shard(2), Replicate()]), ("shard", [Shard(2), Shard(2)])):
+                y = residual_add(distribute_tensor(x, mesh, xp), h)
+                res[name] = [pl(y), bool(torch.equal(y.full_tensor(), x + parts.sum(0)))]
+            res["plain"] = bool(torch.equal(residual_add(x, parts[0]), x + parts[0]))
+            with open(os.path.join(OUT, f"rank{rank}.json"), "w") as f:
+                json.dump(res, f)
+            dist.destroy_process_group()
+
+        if __name__ == "__main__":
+            store = "file://" + os.path.join(OUT, "store")
+            mp.spawn(rank_main, args=(store,), nprocs=4, join=True)
+            print(json.dumps([json.load(open(os.path.join(OUT, f"rank{r}.json")))
+                              for r in range(4)]))
+    """)
+    for res in out:
+        assert res["rep"] == [["S2", "R"], True]
+        assert res["shard"] == [["S2", "S2"], True]
+        assert res["plain"]
