@@ -310,14 +310,13 @@ def efbv_sync(grads_g, state: SyncState, c: Compressor, lam: float, nu: float,
     """
     if bucket_size is None:
         bucket_size = bk.DEFAULT_BUCKET_SIZE
-    with obs_trace.span("sync/efbv"):
-        if not fused_path(c, bucket_size):
-            return _efbv_sync_leaves(grads_g, state, c, lam, nu, noise,
-                                     generator, like)
-        with obs_trace.span("sync/bucketize"):
-            g_b, layout = bk.bucketize_groups(grads_g, bucket_size)
-        return efbv_sync_buckets(g_b, layout, state, c, lam, nu, noise=noise,
-                                 generator=generator, like=like)
+    if not fused_path(c, bucket_size):
+        return _efbv_sync_leaves(grads_g, state, c, lam, nu, noise,
+                                 generator, like)
+    with obs_trace.span("sync/bucketize"):
+        g_b, layout = bk.bucketize_groups(grads_g, bucket_size)
+    return efbv_sync_buckets(g_b, layout, state, c, lam, nu, noise=noise,
+                             generator=generator, like=like)
 
 
 def efbv_sync_buckets(g_b: torch.Tensor, layout: bk.BucketLayout,

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import (_dense_init, apply_rope, features_whole, l2norm,
                                        project_out, whole_grad)
+from repro_torch.obs import trace as obs_trace
 from repro_torch.sharding import layout
 from repro_torch.sharding.layout import AnyDTensor, shard_start
 
@@ -293,58 +294,64 @@ class _FlashAttention(torch.autograd.Function):
     The backward recomputes each visited score tile from them,
     p = exp(s - m) / max(l, 1e-30), and accumulates dv += p^T do,
     ds = p (do v^T - D) with D = rowsum(do * out), dq += ds k, dk += ds^T q
-    in f32; its transients are one tile's scores and their gradient."""
+    in f32; its transients are one tile's scores and their gradient.
+
+    Each call's forward and backward are one ``model/attn/forward`` /
+    ``model/attn/backward`` span; the backward, and a remat recompute of the
+    forward, run on autograd's thread."""
 
     @staticmethod
     def forward(ctx, q, k, v, kind, window, chunk, q_offset, block_q, block_k):
         plan = _plan(q.shape[1], k.shape[1], kind, window, chunk, q_offset, block_q,
                      block_k)
-        tiles = _Tiles(plan, kind, window, chunk, q_offset, q.device)
-        qf, kf, vf = _layout(q, k, v, plan)
-        out, m, l = _flash_forward(qf, kf, vf, tiles)
-        del qf, kf, vf
-        ctx.save_for_backward(q, k, v, out, m, l)
-        ctx.tiles = tiles
-        B, Sq, H, hd = q.shape
-        return out.permute(0, 2, 1, 3, 4)[:, :Sq].reshape(B, Sq, H, hd).to(q.dtype)
+        with obs_trace.span("model/attn/forward"):
+            tiles = _Tiles(plan, kind, window, chunk, q_offset, q.device)
+            qf, kf, vf = _layout(q, k, v, plan)
+            out, m, l = _flash_forward(qf, kf, vf, tiles)
+            del qf, kf, vf
+            ctx.save_for_backward(q, k, v, out, m, l)
+            ctx.tiles = tiles
+            B, Sq, H, hd = q.shape
+            return out.permute(0, 2, 1, 3, 4)[:, :Sq].reshape(B, Sq, H, hd).to(q.dtype)
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, m_all, l_all = ctx.saved_tensors
         tiles = ctx.tiles
         p = tiles.plan
-        B, Sq, H, hd = q.shape
-        KV = k.shape[2]
-        G = H // KV
-        qf, kf, vf = _layout(q, k, v, p)
-        do = _q_rows(dout, p, KV)
-        D = (do * out).sum(-1)
-        dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
-        for qi, visit in enumerate(p.tiles):
-            rows = slice(qi * p.bq, (qi + 1) * p.bq)
-            qt = qf[:, :, rows].reshape(B, KV, p.bq * G, hd)
-            dot = do[:, :, rows].reshape(B, KV, p.bq * G, hd)
-            m = m_all[:, :, rows][..., None]
-            l = torch.clamp_min(l_all[:, :, rows], 1e-30)[..., None]
-            Dt = D[:, :, rows][..., None]
-            dqt = torch.zeros_like(qt)
-            for ki, cls in visit:
-                cols = slice(ki * p.bk, (ki + 1) * p.bk)
-                pt = tiles.scores(qt, kf, qi, ki, cls).sub_(m).exp_().div_(l)
-                p2 = pt.view(B, KV, p.bq * G, p.bk)
-                dv[:, :, cols] += torch.matmul(p2.transpose(-1, -2), dot)
-                dp = torch.matmul(dot, vf[:, :, cols].transpose(-1, -2))
-                ds = p2.mul_(dp.view(B, KV, p.bq, G, p.bk).sub_(Dt).view_as(p2))
-                del dp
-                dqt += torch.matmul(ds, kf[:, :, cols])
-                dk[:, :, cols] += torch.matmul(ds.transpose(-1, -2), qt)
-                del pt, p2, ds
-            dq[:, :, rows] = dqt.view(B, KV, p.bq, G, hd)
-        dq = dq.mul_(1.0 / math.sqrt(hd)).permute(0, 2, 1, 3, 4)[:, :Sq]
-        dk = dk.permute(0, 2, 1, 3)[:, :p.Sk]
-        dv = dv.permute(0, 2, 1, 3)[:, :p.Sk]
-        return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
-                None, None, None, None, None, None)
+        with obs_trace.span("model/attn/backward"):
+            B, Sq, H, hd = q.shape
+            KV = k.shape[2]
+            G = H // KV
+            qf, kf, vf = _layout(q, k, v, p)
+            do = _q_rows(dout, p, KV)
+            D = (do * out).sum(-1)
+            dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
+            for qi, visit in enumerate(p.tiles):
+                rows = slice(qi * p.bq, (qi + 1) * p.bq)
+                qt = qf[:, :, rows].reshape(B, KV, p.bq * G, hd)
+                dot = do[:, :, rows].reshape(B, KV, p.bq * G, hd)
+                m = m_all[:, :, rows][..., None]
+                l = torch.clamp_min(l_all[:, :, rows], 1e-30)[..., None]
+                Dt = D[:, :, rows][..., None]
+                dqt = torch.zeros_like(qt)
+                for ki, cls in visit:
+                    cols = slice(ki * p.bk, (ki + 1) * p.bk)
+                    pt = tiles.scores(qt, kf, qi, ki, cls).sub_(m).exp_().div_(l)
+                    p2 = pt.view(B, KV, p.bq * G, p.bk)
+                    dv[:, :, cols] += torch.matmul(p2.transpose(-1, -2), dot)
+                    dp = torch.matmul(dot, vf[:, :, cols].transpose(-1, -2))
+                    ds = p2.mul_(dp.view(B, KV, p.bq, G, p.bk).sub_(Dt).view_as(p2))
+                    del dp
+                    dqt += torch.matmul(ds, kf[:, :, cols])
+                    dk[:, :, cols] += torch.matmul(ds.transpose(-1, -2), qt)
+                    del pt, p2, ds
+                dq[:, :, rows] = dqt.view(B, KV, p.bq, G, hd)
+            dq = dq.mul_(1.0 / math.sqrt(hd)).permute(0, 2, 1, 3, 4)[:, :Sq]
+            dk = dk.permute(0, 2, 1, 3)[:, :p.Sk]
+            dv = dv.permute(0, 2, 1, 3)[:, :p.Sk]
+            return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                    None, None, None, None, None, None)
 
 
 def _flash_attention(q, k, v, kind: str, window: int, chunk: int,

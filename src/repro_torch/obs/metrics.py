@@ -25,28 +25,31 @@ from __future__ import annotations
 import json
 import threading
 from collections import deque
-from typing import Dict, List, Optional, Tuple
+from typing import Deque, Dict, List, Optional, Tuple
 
 HIST_WINDOW = 1024  # observations retained per histogram (flight-recorder)
 
 
 class _Metric:
     kind = "metric"
+    series_window: Optional[int] = None     # points kept in ``series``; None: all
 
     def __init__(self, name: str):
         self.name = name
-        self.series: List[Tuple[Optional[int], float]] = []
+        self.series: Deque[Tuple[Optional[int], float]] = deque(maxlen=self.series_window)
 
     def _note(self, step: Optional[int], value: float) -> None:
         self.series.append((step, float(value)))
 
     def to_dict(self) -> dict:
-        return {"kind": self.kind, "name": self.name, "series": self.series}
+        return {"kind": self.kind, "name": self.name, "series": list(self.series)}
 
 
 class Counter(_Metric):
-    """Monotone accumulator (bytes shipped, spans recorded, ...)."""
+    """Monotone accumulator (bytes shipped, spans recorded, ...); ``series``
+    keeps the last ``HIST_WINDOW`` increments, ``total`` every one."""
     kind = "counter"
+    series_window = HIST_WINDOW
 
     def __init__(self, name: str):
         super().__init__(name)
@@ -67,8 +70,10 @@ class Counter(_Metric):
 
 
 class Gauge(_Metric):
-    """Last-write-wins value (bytes/round of a level, modeled time, loss)."""
+    """Last-write-wins value (bytes/round of a level, modeled time, loss);
+    ``series`` keeps the last ``HIST_WINDOW`` writes."""
     kind = "gauge"
+    series_window = HIST_WINDOW
 
     def __init__(self, name: str):
         super().__init__(name)

@@ -16,6 +16,10 @@ serving their materialized params.
 
 The engine's cache is a list of per-slot model caches.
 
+Each slot call is traced (``obs.trace``): ``serve/slot/eff`` (the delta
+apply), ``serve/slot/debucketize`` and ``serve/slot/prefill`` or
+``serve/slot/decode`` (the model's call).
+
 :class:`PersonalizedBatcher` plugs the engine into the continuous batcher:
 admission pins the user's delta in the pool (paging it in on a miss) and
 retirement releases the pin.
@@ -28,6 +32,7 @@ import torch
 
 from repro_torch.comm.buckets import bucketize, debucketize
 from repro_torch.models import decode_step, prefill as model_prefill
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.deltas import DeltaStore
 from repro_torch.serve.pool import BlockPool
 from repro_torch.training.serving import ContinuousBatcher, Request
@@ -49,20 +54,25 @@ class DeltaServeEngine:
 
     # -- one slot (shared by both paths) ------------------------------------
     def _slot_prefill(self, eff_b: torch.Tensor, tokens_b: torch.Tensor):
-        params = debucketize(eff_b, self.layout)
-        logits, cache = model_prefill(params, self.cfg, {"tokens": tokens_b[None]},
-                                      cache_len=self.max_len)
+        with obs_trace.span("serve/slot/debucketize"):
+            params = debucketize(eff_b, self.layout)
+        with obs_trace.span("serve/slot/prefill"):
+            logits, cache = model_prefill(params, self.cfg, {"tokens": tokens_b[None]},
+                                          cache_len=self.max_len)
         return logits[0], cache
 
     def _slot_decode(self, eff_b: torch.Tensor, tok_b: torch.Tensor, cache_b: dict):
-        params = debucketize(eff_b, self.layout)
-        logits, cache = decode_step(params, self.cfg, tok_b[None], cache_b)
+        with obs_trace.span("serve/slot/debucketize"):
+            params = debucketize(eff_b, self.layout)
+        with obs_trace.span("serve/slot/decode"):
+            logits, cache = decode_step(params, self.cfg, tok_b[None], cache_b)
         return logits[0], cache
 
     def delta_eff(self, pool: BlockPool, table: torch.Tensor) -> torch.Tensor:
         """One slot's effective f32 blocks ``base + pool[table]``."""
-        # pool[table] + base == base + pool[table]: IEEE addition commutes
-        return torch.index_select(pool.blocks, 0, table).add_(self.store.base_blocks)
+        with obs_trace.span("serve/slot/eff"):
+            # pool[table] + base == base + pool[table]: IEEE addition commutes
+            return torch.index_select(pool.blocks, 0, table).add_(self.store.base_blocks)
 
     def _run(self, one, eff_of, n: int, *per_slot):
         outs = [one(eff_of(b), *(a[b] for a in per_slot)) for b in range(n)]

@@ -9,6 +9,11 @@ prompt + generated context), exactly as the JAX package does.
 Subclass hooks (``repro_torch.serve.engine.PersonalizedBatcher`` uses all
 four): ``_build_model``, ``_model_prefill`` / ``_model_decode``,
 ``_on_admit`` / ``_on_retire``.
+
+Spans (``obs.trace``): ``serve/admit`` holds a refill's admission and its
+``serve/prefill``; each decode step is ``serve/decode`` and then
+``serve/token/decode``, the host's read of its tokens, which waits for the
+device.
 """
 from __future__ import annotations
 
@@ -149,7 +154,8 @@ class ContinuousBatcher:
         with obs_trace.span("serve/decode", live=len(live)):
             logits, self.cache = self._model_decode(
                 torch.as_tensor(self.next_tok, device=self.device))
-        nxt = self._greedy(logits)
+        with obs_trace.span("serve/token/decode"):
+            nxt = self._greedy(logits)
         self.stats.decode_steps += 1
         for i in live:
             r = self.slots[i]

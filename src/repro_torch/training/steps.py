@@ -188,7 +188,9 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_groups: int, n_pods: in
     ``step/grad`` (forward + backward), ``step/sync`` (the fused efbv step's
     bucketize of each group's gradient included) and ``step/apply`` (clip +
     optimizer).  Steps that loop over groups open a phase's span once per
-    group, so a reader sums a step's spans by name.
+    group, so a reader sums a step's spans by name.  Each backward pass
+    holds a ``step/grad/forward`` (the loss) and a ``step/grad/backward``
+    (``autograd.grad``, the remat recompute included) span.
 
     ``mesh``: the ``DeviceMesh`` the state's DTensors live on; the efbv
     family and hier / local then take their per-rank forms (the module
@@ -208,8 +210,10 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, n_groups: int, n_pods: in
         leaves, td = tree_flatten(params)
         req = [p.detach().requires_grad_(True) for p in leaves]
         with torch.enable_grad():
-            loss, parts = loss_fn(tree_unflatten(td, req), cfg, batch, remat=tc.remat)
-            grads = torch.autograd.grad(loss, req, allow_unused=True)
+            with obs_trace.span("step/grad/forward"):
+                loss, parts = loss_fn(tree_unflatten(td, req), cfg, batch, remat=tc.remat)
+            with obs_trace.span("step/grad/backward"):      # the remat recompute included
+                grads = torch.autograd.grad(loss, req, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
         return (loss.detach(), {k: v.detach() for k, v in parts.items()},
                 constrain_grads(tree_unflatten(td, grads)))
