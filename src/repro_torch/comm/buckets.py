@@ -107,13 +107,28 @@ def bucketize_groups(tree_g, bucket_size: int = DEFAULT_BUCKET_SIZE):
     return flat.view(G, layout.n_buckets, layout.bucket_size), layout
 
 
-def debucketize(buckets: torch.Tensor, layout: BucketLayout, dtype=None):
+def empty_tree(layout: BucketLayout, device=None):
+    """An uninitialized tree of ``layout``'s leaves, each of its recorded
+    shape and dtype: what ``debucketize(..., out=)`` writes in place."""
+    leaves = [torch.empty(shape, dtype=to_dtype(dt), device=device)
+              for shape, dt in zip(layout.shapes, layout.dtypes)]
+    return tree_unflatten(layout.treedef, leaves)
+
+
+def debucketize(buckets: torch.Tensor, layout: BucketLayout, dtype=None, out=None):
     """Inverse of ``bucketize``; ``dtype`` overrides the recorded leaf dtypes.
-    A leaf whose dtype is already f32 is a view into ``buckets``."""
+    A leaf whose dtype is already f32 is a view into ``buckets``.  With
+    ``out`` (a tree from ``empty_tree``) every leaf is cast and copied into
+    ``out``'s, at the addresses it already has, and ``out`` is returned: the
+    same values, bit for bit."""
     flat = buckets.reshape(-1)[: layout.d]
-    leaves = [flat[off: off + size].view(shape).to(to_dtype(dtype or dt))
-              for shape, dt, size, off in zip(layout.shapes, layout.dtypes,
-                                              layout.sizes, layout.offsets)]
+    views = [flat[off: off + size].view(shape)
+             for shape, size, off in zip(layout.shapes, layout.sizes, layout.offsets)]
+    if out is not None:
+        for leaf, v in zip(tree_flatten(out)[0], views):
+            leaf.copy_(v)
+        return out
+    leaves = [v.to(to_dtype(dtype or dt)) for v, dt in zip(views, layout.dtypes)]
     return tree_unflatten(layout.treedef, leaves)
 
 

@@ -373,6 +373,11 @@ def build_report(trace_path: str, metrics_path: Optional[str] = None,
         if pool:
             lines.append("    pool  " + "  ".join(
                 f"{k}={int(round(v))}" for k, v in sorted(pool.items())))
+        graph = {k[len("graph/"):]: v for k, v in serve_stats.items()
+                 if k.startswith("graph/")}
+        if graph:
+            lines.append("    graph  " + "  ".join(
+                f"{k}={int(round(v))}" for k, v in sorted(graph.items())))
 
     result = {
         "measured_s": measured, "modeled_s": modeled,

@@ -16,9 +16,23 @@ serving their materialized params.
 
 The engine's cache is a list of per-slot model caches.
 
+The delta apply writes ONE parameter tree that the engine owns (bf16 and
+f32 leaves as the layout records them), in place: every slot call, prefill
+and decode, delta and materialized path, reads the same tree at the same
+addresses, and ``eff`` stays transient.
+
+Where every layer is a Mamba mixer and no layer routes experts, on a CUDA
+device, each slot's decode step is a CUDA graph (:class:`SlotGraph`),
+captured at the slot's first decode call and replayed at every later one;
+everything else runs eagerly (attention's decode indexes its ring by a
+Python position, MoE routing has data-dependent shapes).  Counters
+``serve/graph/captures``, ``serve/graph/replays`` and ``serve/graph/eager``
+(the decode calls that ran eagerly) count the slot decode calls.
+
 Each slot call is traced (``obs.trace``): ``serve/slot/eff`` (the delta
 apply), ``serve/slot/debucketize`` and ``serve/slot/prefill`` or
-``serve/slot/decode`` (the model's call).
+``serve/slot/decode`` (the model's call, around a graph's capture or
+replay; no span opens inside a captured region).
 
 :class:`PersonalizedBatcher` plugs the engine into the continuous batcher:
 admission pins the user's delta in the pool (paging it in on a miss) and
@@ -30,12 +44,59 @@ from typing import List, Sequence
 
 import torch
 
-from repro_torch.comm.buckets import bucketize, debucketize
+from repro_torch.comm.buckets import bucketize, debucketize, empty_tree
+from repro_torch.configs.base import MAMBA
 from repro_torch.models import decode_step, prefill as model_prefill
+from repro_torch.models.transformer import period_info
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.deltas import DeltaStore
 from repro_torch.serve.pool import BlockPool
 from repro_torch.training.serving import ContinuousBatcher, Request
+from repro_torch.utils.tree import tree_leaves, tree_map
+
+
+def decode_graph_eligible(cfg, device) -> bool:
+    """Whether a slot's decode step is replayed as a CUDA graph: on a CUDA
+    device, with every layer a Mamba mixer and no layer routing experts."""
+    _, _, kinds, moe = period_info(cfg)
+    return (torch.device(device).type == "cuda" and all(k == MAMBA for k in kinds)
+            and not any(moe))
+
+
+class SlotGraph:
+    """One slot's ``decode_step`` captured as a CUDA graph.
+
+    The graph reads the engine's parameter tree, its own token buffer and
+    its own decode cache at the addresses it was captured against, and
+    writes its own logits.  ``step`` first copies a cache it did not hand
+    out (a prefill's) into its buffers; the cache it returns is its own,
+    valid until the slot's next decode call.  ``pos`` is a Python int,
+    advanced here after each replay."""
+
+    def __init__(self, cfg, params, tok_b: torch.Tensor, cache_b: dict, pool):
+        self.tok = tok_b.clone()
+        self.cache = {"layers": tree_map(torch.clone, cache_b["layers"]), "pos": 0}
+        # warm up off the capture (lazy initialization: cuBLAS handles,
+        # workspaces); the step it takes is undone by ``step``'s load
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            decode_step(params, cfg, self.tok[None], self.cache)
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool):
+            self.logits, _ = decode_step(params, cfg, self.tok[None], self.cache)
+
+    def step(self, tok_b: torch.Tensor, cache_b: dict):
+        if cache_b is not self.cache:
+            for dst, src in zip(tree_leaves(self.cache["layers"]),
+                                tree_leaves(cache_b["layers"])):
+                dst.copy_(src)
+            self.cache["pos"] = cache_b["pos"]
+        self.tok.copy_(tok_b)
+        self.graph.replay()
+        self.cache["pos"] += 1
+        return self.logits, self.cache
 
 
 class DeltaServeEngine:
@@ -43,7 +104,7 @@ class DeltaServeEngine:
     every decoder-only config (dense, MoE, Mamba, hybrid); refuses
     encoder-decoder and vision configs, as the reference does."""
 
-    def __init__(self, cfg, store: DeltaStore, max_len: int = 128):
+    def __init__(self, cfg, store: DeltaStore, max_len: int = 128, metrics=None):
         if cfg.enc_layers or cfg.vision_tokens:
             raise NotImplementedError(
                 "DeltaServeEngine serves decoder-only configs")
@@ -51,22 +112,52 @@ class DeltaServeEngine:
         self.store = store
         self.layout = store.layout
         self.max_len = int(max_len)
+        if metrics is None:
+            from repro_torch.obs.metrics import registry as metrics
+        self.metrics = metrics
+        self.graphed = decode_graph_eligible(cfg, store.device)
+        # the one parameter tree, made at the first slot call: not held
+        # through the set-up's page-ins, whose transients it would add to
+        self._params = None
+        self._graphs = {}           # (path, slot) -> SlotGraph
+        self._pool = torch.cuda.graph_pool_handle() if self.graphed else None
 
     # -- one slot (shared by both paths) ------------------------------------
-    def _slot_prefill(self, eff_b: torch.Tensor, tokens_b: torch.Tensor):
+    def _load_params(self, eff_b: torch.Tensor):
+        """``eff_b`` cast into the engine's parameter tree, in place."""
+        if self._params is None:
+            self._params = empty_tree(self.layout, self.store.device)
         with obs_trace.span("serve/slot/debucketize"):
-            params = debucketize(eff_b, self.layout)
+            return debucketize(eff_b, self.layout, out=self._params)
+
+    def _slot_prefill(self, eff_b: torch.Tensor, tokens_b: torch.Tensor):
+        params = self._load_params(eff_b)
         with obs_trace.span("serve/slot/prefill"):
             logits, cache = model_prefill(params, self.cfg, {"tokens": tokens_b[None]},
                                           cache_len=self.max_len)
         return logits[0], cache
 
-    def _slot_decode(self, eff_b: torch.Tensor, tok_b: torch.Tensor, cache_b: dict):
-        with obs_trace.span("serve/slot/debucketize"):
-            params = debucketize(eff_b, self.layout)
+    def _slot_decode(self, eff_b: torch.Tensor, tok_b: torch.Tensor, cache_b: dict,
+                     key: tuple):
+        params = self._load_params(eff_b)
         with obs_trace.span("serve/slot/decode"):
-            logits, cache = decode_step(params, self.cfg, tok_b[None], cache_b)
+            logits, cache = self._decode(params, tok_b, cache_b, key)
         return logits[0], cache
+
+    def _decode(self, params, tok_b: torch.Tensor, cache_b: dict, key: tuple):
+        """The model's decode step of one slot: eager, or the CUDA graph of
+        ``key`` (path, slot), captured at its first call."""
+        if not self.graphed:
+            self.metrics.counter("serve/graph/eager").inc()
+            return decode_step(params, self.cfg, tok_b[None], cache_b)
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = SlotGraph(self.cfg, params, tok_b, cache_b,
+                                                  self._pool)
+            self.metrics.counter("serve/graph/captures").inc()
+        else:
+            self.metrics.counter("serve/graph/replays").inc()
+        return graph.step(tok_b, cache_b)
 
     def delta_eff(self, pool: BlockPool, table: torch.Tensor) -> torch.Tensor:
         """One slot's effective f32 blocks ``base + pool[table]``."""
@@ -89,9 +180,12 @@ class DeltaServeEngine:
                          tokens.shape[0], tokens)
 
     def decode(self, pool: BlockPool, tables, tok: torch.Tensor, cache: List[dict]):
+        """The caches returned may be the slots' graph buffers: each is valid
+        until that slot's next decode call on this path."""
         tables = self._tables(tables)
+        n = tok.shape[0]
         return self._run(self._slot_decode, lambda b: self.delta_eff(pool, tables[b]),
-                         tok.shape[0], tok, cache)
+                         n, tok, cache, [("delta", b) for b in range(n)])
 
     # -- materialized path (oracle / full-copy serving) ----------------------
     def prefill_materialized(self, eff_blocks: Sequence[torch.Tensor], tokens: torch.Tensor):
@@ -101,8 +195,9 @@ class DeltaServeEngine:
 
     def decode_materialized(self, eff_blocks: Sequence[torch.Tensor], tok: torch.Tensor,
                             cache: List[dict]):
+        n = tok.shape[0]
         return self._run(self._slot_decode, lambda b: eff_blocks[b],
-                         tok.shape[0], tok, cache)
+                         n, tok, cache, [("materialized", b) for b in range(n)])
 
     def eff_blocks_for(self, params_list: List) -> torch.Tensor:
         """Per-slot materialized trees -> (B, n_blocks, bs) blocks."""
@@ -134,7 +229,8 @@ class PersonalizedBatcher(ContinuousBatcher):
                          device=store.device)
 
     def _build_model(self) -> None:
-        self.engine = DeltaServeEngine(self.cfg, self.store, self.max_len)
+        self.engine = DeltaServeEngine(self.cfg, self.store, self.max_len,
+                                       metrics=self.pool.metrics)
 
     def _model_prefill(self, batch):
         return self.engine.prefill(self.pool, self._tables, batch["tokens"])
