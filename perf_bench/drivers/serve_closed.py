@@ -133,15 +133,9 @@ class Loop:
         return not self.b.queue and all(r is None or r.done for r in self.b.slots)
 
 
-def _instrument(batcher, pool, page_in_ms: list, cuda: bool) -> list:
-    """The traced run's own spans around the delta apply (the engine's
-    ``delta_eff`` and the ``debucketize`` of each slot call), and the host
-    time of each page-in (a pool ``acquire`` of a user not resident,
-    synchronized on both sides).  -> what to restore afterwards."""
-    import repro_torch.serve.engine as engine_mod
-    spans.wrap(batcher.engine, "delta_eff", "bench/delta_eff")
-    restore = [(engine_mod, "debucketize", engine_mod.debucketize)]
-    spans.wrap(engine_mod, "debucketize", "bench/debucketize")
+def _time_page_ins(pool, page_in_ms: list, cuda: bool) -> None:
+    """The traced run's host time of each page-in (a pool ``acquire`` of a
+    user not resident, synchronized on both sides)."""
     acquire = pool.acquire
 
     def timed_acquire(uid):
@@ -155,7 +149,6 @@ def _instrument(batcher, pool, page_in_ms: list, cuda: bool) -> list:
         return e
 
     pool.acquire = timed_acquire
-    return restore
 
 
 def run(ctx: bench.Context) -> bench.Run:
@@ -201,22 +194,19 @@ def run(ctx: bench.Context) -> bench.Run:
     # ---------------------------------------------------------------- window
     loop = Loop(batcher, ClosedLoop(tr, ctx.seed, cfg["vocab_size"]), cuda, warm.next_rid)
     page_in_ms: List[float] = []
-    restore = _instrument(batcher, pool, page_in_ms, cuda) if ctx.trace and cuda else []
+    if ctx.trace and cuda:
+        _time_page_ins(pool, page_in_ms, cuda)
     spans.reset()
     hits0, miss0 = pool.hits, pool.misses
     trace_cm = DeviceTrace() if (ctx.trace and cuda) else contextlib.nullcontext()
-    try:
-        with trace_cm as dtrace:
-            t0 = bench.now()
-            setup_s = t0 - ctx.t0
-            for c in range(tr["clients"]):
-                loop.submit(c)
-            while bench.now() - t0 < ctx.seconds:
-                loop.step(resubmit=True)
-            t1 = bench.now()
-    finally:
-        for obj, attr, fn in restore:
-            setattr(obj, attr, fn)
+    with trace_cm as dtrace:
+        t0 = bench.now()
+        setup_s = t0 - ctx.t0
+        for c in range(tr["clients"]):
+            loop.submit(c)
+        while bench.now() - t0 < ctx.seconds:
+            loop.step(resubmit=True)
+        t1 = bench.now()
     run = bench.Run(config=cfg, cell=cell, traffic=tr)
     run.window_s = t1 - t0
     recs = list(loop.records.values())

@@ -8,6 +8,8 @@ gives it:
     perf_bench/cells/<cell>.json        the cell: config, traffic, driver,
                                         the driver's options, the limits
     perf_bench/configs/<config>.json    published sizes, source, reductions
+    perf_bench/families/<family>.py     a family's leaves, program fields,
+                                        reference layers and flop counts
     perf_bench/traffic/<traffic>.json   the parameters of the traffic mix
     perf_bench/drivers/<driver>.py      run(ctx) -> Run
     perf_bench/metrics/<metric>.py      read(run) -> number or None
@@ -60,14 +62,21 @@ def workload(man: dict, name: str) -> dict:
     raise KeyError(f"no workload {name!r} in BENCHMARK.json")
 
 
+_LOADED: Dict[Path, object] = {}
+
+
 def load_py(kind: str, name: str):
-    """The module ``perf_bench/<kind>/<name>.py`` (names may hold dots)."""
+    """The module ``perf_bench/<kind>/<name>.py`` (names may hold dots),
+    loaded once per file."""
     path = BENCH / kind / f"{name}.py"
+    if path in _LOADED:
+        return _LOADED[path]
     mod_name = f"perf_bench_{kind}_" + "".join(c if c.isalnum() else "_" for c in name)
     spec = importlib.util.spec_from_file_location(mod_name, path)
     mod = importlib.util.module_from_spec(spec)
     sys.modules[mod_name] = mod
     spec.loader.exec_module(mod)
+    _LOADED[path] = mod
     return mod
 
 

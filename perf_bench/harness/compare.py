@@ -6,6 +6,7 @@ from typing import Optional
 
 import torch
 
+# the ModelConfig fields a configuration file states under the program's names
 MODEL_KEYS = ("num_layers", "d_model", "num_heads", "num_kv_heads", "head_dim", "d_ff",
               "vocab_size", "sliding_window", "rope_theta", "norm_eps", "tie_embeddings",
               "dtype")
@@ -13,16 +14,15 @@ MODEL_KEYS = ("num_layers", "d_model", "num_heads", "num_kv_heads", "head_dim", 
 
 def program_config(cfg: dict):
     """The program's ModelConfig for the benchmark's configuration file: its
-    registered architecture with every size the file states."""
+    registered architecture with every field the file states, as its
+    family (``perf_bench/families/<family>.py``) maps them."""
     from dataclasses import replace
 
+    from perf_bench.harness import bench
     from repro_torch.configs import get_config
 
     base = get_config(cfg["program_arch"])
-    kw = {k: cfg[k] for k in MODEL_KEYS if k in cfg}
-    if "mamba" in cfg:
-        kw["mamba"] = replace(base.mamba, **cfg["mamba"])
-    return replace(base, **kw)
+    return replace(base, **bench.load_py("families", cfg["family"]).program_fields(cfg, base))
 
 
 def loss_gap(prog, ref) -> float:

@@ -3,7 +3,9 @@ they are served in.
 
 The leaves are described by the benchmark's own layout (``leaf_specs``),
 derived from the configuration file alone: one ``LeafSpec`` per stacked
-leaf, in sorted path order.  That order is the flat vector the delta
+leaf, in sorted path order; the blocks' leaves come from the
+configuration's family (``perf_bench/families/<family>.py``), built with
+``mat`` and ``norm``.  That order is the flat vector the delta
 compressor and the EF-BV sync quantize in 512-element rows, so the plain
 reference works in the same flat space.  A driver checks that the program's
 tree has exactly these paths, shapes and dtypes before it hands the weights
@@ -58,57 +60,32 @@ def padded_vocab(cfg: dict, multiple: int = 16) -> int:
     return -(-cfg["vocab_size"] // multiple) * multiple
 
 
-def mamba_dims(cfg: dict) -> dict:
-    m = cfg["mamba"]
-    d_inner = m["expand"] * cfg["d_model"]
-    n_heads = d_inner // m["head_dim"]
-    conv_dim = d_inner + 2 * m["n_groups"] * m["d_state"]
-    in_dim = 2 * d_inner + 2 * m["n_groups"] * m["d_state"] + n_heads
-    return dict(d_inner=d_inner, n_heads=n_heads, conv_dim=conv_dim, in_dim=in_dim)
+def mat(cfg: dict, path: str, shape: Tuple[int, ...]) -> LeafSpec:
+    """A weight (fan_in, fan_out) stacked over the layers: N(0, 1/fan_in),
+    and a user's personalization of the same std."""
+    std = 1.0 / math.sqrt(shape[0])
+    return LeafSpec(path, (cfg["num_layers"],) + shape, cfg["dtype"], "normal", std, std)
+
+
+def norm(cfg: dict, path: str, dim: int, stacked: bool = True) -> LeafSpec:
+    """An RMSNorm scale of ones, stacked over the layers unless ``stacked``
+    is false."""
+    return LeafSpec(path, ((cfg["num_layers"],) if stacked else ()) + (dim,), cfg["dtype"],
+                    "ones", 0.0, 1.0)
 
 
 def leaf_specs(cfg: dict) -> List[LeafSpec]:
-    """Every leaf of the configuration's model, sorted by path."""
-    dt = cfg["dtype"]
-    L, D, V = cfg["num_layers"], cfg["d_model"], padded_vocab(cfg)
+    """Every leaf of the configuration's model, sorted by path: the
+    embedding, the final norm and an untied output matrix, and the blocks'
+    leaves that ``perf_bench/families/<family>.py`` lays out."""
+    from perf_bench.harness import bench
 
-    def mat(path, shape):       # a weight (fan_in, fan_out), stacked over layers
-        return LeafSpec(path, (L,) + shape, dt, "normal", 1.0 / math.sqrt(shape[0]),
-                        1.0 / math.sqrt(shape[0]))
-
-    def norm(path, dim, stacked=True):
-        return LeafSpec(path, ((L,) if stacked else ()) + (dim,), dt, "ones", 0.0, 1.0)
-
+    dt, D, V = cfg["dtype"], cfg["d_model"], padded_vocab(cfg)
     # embeddings N(0, 1/d): unit-spread logits at any width (0.0198 at d 2560)
     emb = 1.0 / math.sqrt(D)
     specs = [LeafSpec("embed/tok", (V, D), dt, "normal", emb, emb),
-             norm("final_norm/scale", D, stacked=False),
-             norm("blocks/pos0/norm1/scale", D)]
-    if cfg["family"] == "dense":
-        H, KV, hd, F = cfg["num_heads"], cfg["num_kv_heads"], cfg["head_dim"], cfg["d_ff"]
-        specs += [mat("blocks/pos0/attn/wq", (D, H * hd)),
-                  mat("blocks/pos0/attn/wk", (D, KV * hd)),
-                  mat("blocks/pos0/attn/wv", (D, KV * hd)),
-                  mat("blocks/pos0/attn/wo", (H * hd, D)),
-                  norm("blocks/pos0/norm2/scale", D),
-                  mat("blocks/pos0/mlp/w_in", (D, F)),
-                  mat("blocks/pos0/mlp/w_gate", (D, F)),
-                  mat("blocks/pos0/mlp/w_out", (F, D))]
-    elif cfg["family"] == "ssm":
-        m, dims = cfg["mamba"], mamba_dims(cfg)
-        H, f32 = dims["n_heads"], "float32"
-        pre = "blocks/pos0/mamba/"
-        specs += [mat(pre + "in_proj", (D, dims["in_dim"])),
-                  LeafSpec(pre + "conv_w", (L, m["d_conv"], dims["conv_dim"]), dt, "normal",
-                           0.5, 0.5),
-                  LeafSpec(pre + "conv_b", (L, dims["conv_dim"]), dt, "zeros", 0.0, 0.5),
-                  LeafSpec(pre + "a_log", (L, H), f32, "a_log", 0.0, 1.0),
-                  LeafSpec(pre + "dt_bias", (L, H), f32, "const", -2.0, 1.0),
-                  LeafSpec(pre + "D", (L, H), f32, "const", 1.0, 1.0),
-                  norm(pre + "norm/scale", dims["d_inner"]),
-                  mat(pre + "out_proj", (dims["d_inner"], D))]
-    else:
-        raise ValueError(f"unknown family {cfg['family']!r}")
+             norm(cfg, "final_norm/scale", D, stacked=False)]
+    specs += bench.load_py("families", cfg["family"]).block_leaves(cfg)
     if not cfg.get("tie_embeddings", False):
         specs.append(LeafSpec("embed/unembed", (D, V), dt, "normal", emb, emb))
     return sorted(specs, key=lambda s: s.path.split("/"))

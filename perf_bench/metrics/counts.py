@@ -8,7 +8,9 @@ where logits are needed), causal attention over the positions it sees (its
 QK and PV products once, no masked half), the SSD's recurrence over its
 state (one multiply-add per state element to update it and one to read it
 out).  A training token costs three forwards (the backward two), with no
-recomputation counted.
+recomputation counted.  What a layer costs is its family's
+(``perf_bench/families/<family>.py``: ``body_weights``, ``mixer_flops``,
+``POSITIONAL``).
 """
 from __future__ import annotations
 
@@ -16,37 +18,20 @@ PEAK_FLOPS_BF16 = 989.4e12      # dense bf16, per card
 HBM_BYTES_PER_S = 3.35e12
 
 
-def _mamba(cfg: dict) -> dict:
-    m = cfg["mamba"]
-    di = m["expand"] * cfg["d_model"]
-    H = di // m["head_dim"]
-    conv = di + 2 * m["n_groups"] * m["d_state"]
-    return dict(di=di, H=H, P=m["head_dim"], N=m["d_state"],
-                in_dim=2 * di + 2 * m["n_groups"] * m["d_state"] + H, conv=conv)
+def _family(cfg: dict):
+    from perf_bench.harness import bench
+    return bench.load_py("families", cfg["family"])
 
 
 def body_weights(cfg: dict) -> int:
     """Multiply-adds of one token through every layer's weight products."""
-    D, L = cfg["d_model"], cfg["num_layers"]
-    if cfg["family"] == "dense":
-        q = cfg["num_heads"] * cfg["head_dim"]
-        kv = cfg["num_kv_heads"] * cfg["head_dim"]
-        per = D * q + 2 * D * kv + q * D + 3 * D * cfg["d_ff"]
-    else:
-        m = _mamba(cfg)
-        per = D * m["in_dim"] + m["di"] * D
-    return L * per
+    return _family(cfg).body_weights(cfg)
 
 
 def mixer_flops(cfg: dict, ctx: int) -> float:
     """Flops of one token's sequence mixing at context length ``ctx`` (the
     positions it sees, itself included), all layers."""
-    L = cfg["num_layers"]
-    if cfg["family"] == "dense":
-        w = cfg.get("sliding_window") or ctx
-        return L * 4.0 * cfg["num_heads"] * cfg["head_dim"] * min(ctx, w)
-    m = _mamba(cfg)
-    return L * 4.0 * m["H"] * m["P"] * m["N"]
+    return _family(cfg).mixer_flops(cfg, ctx)
 
 
 def token_flops(cfg: dict, ctx: int, logits: bool) -> float:
@@ -61,7 +46,7 @@ def train_step_flops(cfg: dict, seq_len: int, batch: int) -> float:
     """Forward + backward flops of one step over ``batch`` rows of
     ``seq_len`` tokens, logits at every position."""
     per_row = sum(token_flops(cfg, p + 1, True) for p in range(seq_len)) \
-        if cfg["family"] == "dense" else seq_len * token_flops(cfg, 1, True)
+        if _family(cfg).POSITIONAL else seq_len * token_flops(cfg, 1, True)
     return 3.0 * batch * per_row
 
 

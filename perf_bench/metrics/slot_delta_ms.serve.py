@@ -1,8 +1,8 @@
-"""Device ms of one slot call's delta apply, from the program's own spans:
-``serve/slot/eff`` (base + pool[table], f32) and ``serve/slot/debucketize``
-(back to the model's tree), summed, over the count of ``serve/slot/eff``.
-``delta_apply_ms.serve``'s definition; None where the program has no such
-span."""
+"""Device ms of one slot call's delta apply, mean, from the program's own
+spans: ``serve/slot/eff`` (``DeltaServeEngine.delta_eff``: base +
+pool[table], f32) and ``serve/slot/debucketize`` (its cast back into the
+engine's parameter tree), summed over the window, over the count of
+``serve/slot/eff``; None where the program has no such span."""
 
 
 def read(run):

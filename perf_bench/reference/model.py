@@ -1,18 +1,11 @@
-"""Plain float32 forward passes of the benchmark's two architectures.
+"""Plain float32 forward passes: the shared building blocks (products,
+RMSNorm, rotary embeddings, causal attention, the SSD) and the entry points
+``hidden``, ``logits`` and ``loss``, which hand the layers to the
+configuration's family (``perf_bench/families/<family>.py``).
 
 ``params`` maps a leaf path (``"blocks/pos0/attn/wq"``) to an f32 tensor
 or, for a block leaf, to the list of its layers' tensors.  Written from
-the published descriptions, not from the program:
-
-* H2O-Danube (arXiv:2401.16818): Llama blocks, pre-RMSNorm, grouped-query
-  attention with rotary embeddings (the two halves of a head rotated as a
-  pair) and Mistral's sliding window (a query sees the keys no more than
-  ``window - 1`` positions back), a SwiGLU MLP, an untied output matrix.
-* Mamba2 (arXiv:2405.21060): each layer ``x + out_proj(RMSNorm(SSD(...) *
-  silu(z)))`` after an RMSNorm; ``in_proj`` gives z, x, B, C and dt; a
-  causal depthwise convolution and SiLU over (x, B, C); dt = softplus(dt +
-  dt_bias); A = -exp(a_log); the SSD computed by the paper's chunked
-  algorithm (its "minimal discrete" listing); a D skip; a tied output.
+the published descriptions, not from the program.
 
 ``fp8=True`` computes in float8 e4m3 under per-tensor scales, the precision
 below the bf16 the configurations state: every weight product's operands
@@ -93,21 +86,6 @@ def attention(q, k, v, window: int) -> torch.Tensor:
     return o.permute(0, 3, 1, 2, 4).reshape(B, S, H * hd)
 
 
-def danube_layer(x, p: dict, cfg: dict, fp8: bool):
-    B, S, _ = x.shape
-    H, KV, hd = cfg["num_heads"], cfg["num_kv_heads"], cfg["head_dim"]
-    eps = cfg["norm_eps"]
-    h = rmsnorm(x, p["norm1/scale"], eps)
-    q = mm(h, p["attn/wq"], fp8).view(B, S, H, hd)
-    k = mm(h, p["attn/wk"], fp8).view(B, S, KV, hd)
-    v = mm(h, p["attn/wv"], fp8).view(B, S, KV, hd)
-    q, k = rope(q, cfg["rope_theta"]), rope(k, cfg["rope_theta"])
-    x = x + mm(attention(q, k, v, cfg.get("sliding_window", 0)), p["attn/wo"], fp8)
-    h = rmsnorm(x, p["norm2/scale"], eps)
-    g = F.silu(mm(h, p["mlp/w_gate"], fp8)) * mm(h, p["mlp/w_in"], fp8)
-    return x + mm(g, p["mlp/w_out"], fp8)
-
-
 def segsum(x: torch.Tensor) -> torch.Tensor:
     """x (..., T) -> (..., T, T): out[i, j] = x[j+1] + ... + x[i] for j <= i,
     -inf above the diagonal."""
@@ -143,53 +121,20 @@ def ssd(X, A, Bm, Cm, chunk: int) -> torch.Tensor:
     return (Y_diag + Y_off).reshape(b, l, h, p)
 
 
-def mamba_layer(x, p: dict, cfg: dict, fp8: bool):
-    m = cfg["mamba"]
-    B, S, D = x.shape
-    di = m["expand"] * D
-    H, P, N, G, K = di // m["head_dim"], m["head_dim"], m["d_state"], m["n_groups"], m["d_conv"]
-    eps = cfg["norm_eps"]
-    h = rmsnorm(x, p["norm1/scale"], eps)
-    zxbcdt = mm(h, p["mamba/in_proj"], fp8)
-    z, xBC, dt = torch.split(zxbcdt, [di, di + 2 * G * N, H], dim=-1)
-    w = p["mamba/conv_w"]                                           # (K, conv_dim)
-    xp = F.pad(xBC, (0, 0, K - 1, 0))
-    xBC = F.silu(sum(xp[:, i: i + S] * w[i] for i in range(K)) + p["mamba/conv_b"])
-    xs, Bm, Cm = torch.split(xBC, [di, G * N, G * N], dim=-1)
-    dt = F.softplus(dt + p["mamba/dt_bias"])                        # (B, S, H)
-    A = -torch.exp(p["mamba/a_log"])                                # (H,)
-    heads_group = torch.arange(H, device=x.device) // (H // G)
-    Bh = Bm.reshape(B, S, G, N)[:, :, heads_group]                     # (B, S, H, N)
-    Ch = Cm.reshape(B, S, G, N)[:, :, heads_group]
-    xh = xs.reshape(B, S, H, P)
-    Q = m["chunk_size"]
-    pad = (-S) % Q
-    Xd, Ad = xh * dt[..., None], A * dt
-    if pad:     # zeros after the sequence: a causal scan, so nothing earlier changes
-        Xd, Ad = F.pad(Xd, (0, 0, 0, 0, 0, pad)), F.pad(Ad, (0, 0, 0, pad))
-        Bh, Ch = F.pad(Bh, (0, 0, 0, 0, 0, pad)), F.pad(Ch, (0, 0, 0, 0, 0, pad))
-    y = ssd(Xd, Ad, Bh, Ch, Q)[:, :S] + xh * p["mamba/D"][:, None]
-    y = rmsnorm(y.reshape(B, S, di) * F.silu(z), p["mamba/norm/scale"], eps)
-    return x + mm(y, p["mamba/out_proj"], fp8)
-
-
-def _layer_fn(cfg: dict):
-    return danube_layer if cfg["family"] == "dense" else mamba_layer
-
-
-def hidden(params: dict, cfg: dict, tokens: torch.Tensor, fp8: bool = False,
-           remat: bool = False) -> torch.Tensor:
-    """tokens (B, S) -> the final-normed hidden states (B, S, D).  Block
-    leaves are given per layer (``params[path][i]``).  ``remat`` recomputes
-    each layer in the backward (it changes memory, not values)."""
+def layer_stack(params: dict, cfg: dict, tokens: torch.Tensor, layer, fp8: bool,
+                remat: bool) -> torch.Tensor:
+    """tokens (B, S) -> the final-normed hidden states (B, S, D) of a model
+    whose layers are all alike: the embedding, then ``layer(x, leaves,
+    cfg, fp8)`` at each index of the ``blocks/pos0`` stack (``leaves`` keyed
+    by the path below it), then the final norm.  ``remat`` recomputes each
+    layer in the backward (it changes memory, not values)."""
     x = params["embed/tok"][tokens]
     if fp8:
         x = _FakeFP8.apply(x)
-    fn = _layer_fn(cfg)
     names = [k[len("blocks/pos0/"):] for k in params if k.startswith("blocks/")]
 
     def one(x, *leaves):
-        y = fn(x, dict(zip(names, leaves)), cfg, fp8)
+        y = layer(x, dict(zip(names, leaves)), cfg, fp8)
         return _FakeFP8.apply(y) if fp8 else y
 
     for i in range(cfg["num_layers"]):
@@ -199,8 +144,26 @@ def hidden(params: dict, cfg: dict, tokens: torch.Tensor, fp8: bool = False,
     return rmsnorm(x, params["final_norm/scale"], cfg["norm_eps"])
 
 
+def _family(cfg: dict):
+    from perf_bench.harness import bench
+    return bench.load_py("families", cfg["family"])
+
+
+def hidden(params: dict, cfg: dict, tokens: torch.Tensor, fp8: bool = False,
+           remat: bool = False) -> torch.Tensor:
+    """tokens (B, S) -> the final-normed hidden states (B, S, D), by the
+    configuration's family.  Block leaves are given per layer
+    (``params[path][i]``)."""
+    return _family(cfg).hidden(params, cfg, tokens, fp8, remat)
+
+
 def logits(params: dict, cfg: dict, h: torch.Tensor, fp8: bool = False) -> torch.Tensor:
-    """Hidden states -> logits over the real vocabulary (padded rows dropped)."""
+    """Hidden states -> logits over the real vocabulary (padded rows
+    dropped); the family's own ``logits`` where it has one (a published
+    model that scales its output)."""
+    fam = _family(cfg)
+    if hasattr(fam, "logits"):
+        return fam.logits(params, cfg, h, fp8)
     w = params["embed/tok"].T if cfg.get("tie_embeddings") else params["embed/unembed"]
     return mm(h, w[:, : cfg["vocab_size"]], fp8)
 

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import copy
 import time
+from typing import Optional
 
 import torch
 
@@ -15,14 +16,13 @@ SEED = 3_141_592_653_589     # larger than 32 signed bits, as the driver's seeds
 SECONDS = {"train": 2.0, "closed": 6.0}
 
 
-def reduced_config(name: str, dtype: str = "float32", layers: int = 2) -> dict:
+def reduced_config(name: str, dtype: str = "float32", layers: Optional[int] = 2) -> dict:
+    """The configuration file at its family's test sizes (``reduced``), with
+    ``layers`` layers where given, else the family's test depth."""
     c = copy.deepcopy(bench.load_json("configs", name))
-    if c["family"] == "dense":
-        c.update(num_layers=layers, d_model=128, num_heads=4, num_kv_heads=2, head_dim=32,
-                 d_ff=256, vocab_size=512, sliding_window=24)
-    else:
-        c.update(num_layers=layers, d_model=128, vocab_size=500)
-        c["mamba"].update(d_state=16, head_dim=16, chunk_size=8)
+    c.update(bench.load_py("families", c["family"]).reduced(c))
+    if layers:
+        c["num_layers"] = layers
     c["dtype"] = dtype
     return c
 
@@ -30,11 +30,7 @@ def reduced_config(name: str, dtype: str = "float32", layers: int = 2) -> dict:
 def context(cell_name: str, dtype: str = "float32", seed: int = SEED, seconds: float = 0.0,
             control: bool = False, layers: int = 0) -> bench.Context:
     cell = copy.deepcopy(bench.load_json("cells", cell_name))
-    # mamba2 keeps all its layers: a served token's rounding gap grows with
-    # depth, and the float8 control's must reach the cell's limit
-    full = bench.load_json("configs", cell["config"])
-    cfg = reduced_config(cell["config"], dtype, layers or (
-        full["num_layers"] if full["family"] == "ssm" else 2))
+    cfg = reduced_config(cell["config"], dtype, layers or None)
     tr = copy.deepcopy(bench.load_json("traffic", cell["traffic"]))
     if tr["kind"] == "train":
         tr.update(seq_len=48)
