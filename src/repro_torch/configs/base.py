@@ -5,7 +5,10 @@ A copy of ``repro/configs/base.py``: ``ModelConfig`` with
 and ``reduced()``, the MoE/Mamba sub-configs its fields name, the training
 knobs ``LevelConfig``/``SyncConfig``/``TrainConfig`` (same fields, same
 defaults), the dry-run's ``InputShape`` table ``INPUT_SHAPES``, and
-``register``/``get_config``.
+``register``/``get_config``.  Beyond the copy: the fields granite-4.0-h
+needs (the multipliers, the softmax scale, NoPE; the shared expert's
+width, the experts one rank holds, dropless routing), each a no-op at its
+default, and its registration, an architecture the JAX package lacks.
 """
 from __future__ import annotations
 
@@ -29,6 +32,11 @@ class MoEConfig:
     shared_expert: bool = False
     router_jitter: float = 0.0
     aux_loss_weight: float = 0.01
+    # the port's own fields (the JAX package has none of them; each default
+    # keeps its configs as they are)
+    shared_d_ff: int = 0              # the shared expert's width; 0: d_ff
+    held: int = 0                     # experts held here, ids 0 on (one rank's share); 0: all
+    dropless: bool = False            # train and prefill route with no capacity
 
 
 @dataclass(frozen=True)
@@ -73,6 +81,15 @@ class ModelConfig:
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
     supports_long_context: bool = False
+    # the port's own fields (granite-4.0-h's), each default a no-op: the
+    # embedding's output and every residual branch scaled, the logits
+    # divided, the softmax scale (0: 1 / sqrt(head_dim)), no positional
+    # encoding in any attention layer
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    attn_scale: float = 0.0
+    nope: bool = False
 
     def padded_vocab(self, multiple: int = 16) -> int:
         """Vocab rounded up to ``multiple`` (the logits' padded rows)."""
@@ -117,9 +134,11 @@ class ModelConfig:
             n_moe = len([i for i in range(n_blocks) if (i % self.moe_every) == self.moe_every - 1])
             n_dense = n_blocks - n_moe
             p += n_dense * mlp_p
-            p += n_moe * (self.moe.num_experts * mlp_p + d * self.moe.num_experts)
+            # the experts held here (all, unless a share), the router over all
+            held = self.moe.held or self.moe.num_experts
+            p += n_moe * (held * mlp_p + d * self.moe.num_experts)
             if self.moe.shared_expert:
-                p += n_moe * mlp_p
+                p += n_moe * (3 if self.mlp_gated else 2) * d * (self.moe.shared_d_ff or ff)
         else:
             p += n_blocks * mlp_p
         p += (2 * n_blocks + 1) * d          # norms (2 per block + final)
@@ -139,7 +158,11 @@ class ModelConfig:
         mlp_p = (3 if self.mlp_gated else 2) * d * ff
         n_blocks = self.num_layers
         n_moe = len([i for i in range(n_blocks) if (i % self.moe_every) == self.moe_every - 1])
-        inactive = n_moe * (self.moe.num_experts - self.moe.top_k) * mlp_p
+        E = self.moe.num_experts
+        held = self.moe.held or E
+        # a share of the experts: its even share of a token's top_k
+        routed = self.moe.top_k if held == E else self.moe.top_k * held / E
+        inactive = n_moe * (held - routed) * mlp_p
         return self.param_count() - int(inactive)
 
     def reduced(self) -> "ModelConfig":
@@ -151,7 +174,9 @@ class ModelConfig:
         nkv = max(1, min(nh or 1, max(1, self.num_kv_heads * nh // max(1, self.num_heads))))
         moe = None
         if self.moe is not None:
-            moe = replace(self.moe, num_experts=4, top_k=min(self.moe.top_k, 2))
+            moe = replace(self.moe, num_experts=4, top_k=min(self.moe.top_k, 2),
+                          shared_d_ff=min(self.moe.shared_d_ff, 4 * d),
+                          held=min(self.moe.held, 4))
         mamba = None
         if self.mamba is not None:
             mamba = replace(self.mamba, d_state=16, head_dim=16, chunk_size=8)
@@ -287,6 +312,8 @@ def _ensure_loaded():
                                      llama4_scout_17b_a16e, mamba2_2_7b,
                                      nemotron_4_15b, qwen1_5_4b, qwen1_5_110b,
                                      seamless_m4t_large_v2)
+    # and the port's own
+    from repro_torch.configs import granite_4_0_h_small  # noqa: F401
 
 
 def asdict(cfg) -> dict:

@@ -65,4 +65,7 @@ def skip_reason(cfg: ModelConfig, shape_name: str):
     if shape_name == "long_500k" and not cfg.supports_long_context:
         return (f"{cfg.name}: full quadratic attention — 500k decode KV cache "
                 "is out of scope per the assignment (no SWA/chunked/SSM variant)")
+    if cfg.moe is not None and (cfg.moe.dropless or cfg.moe.held):
+        return (f"{cfg.name}: dropless routing and held expert shares run on one "
+                "device only; the mesh's expert-parallel paths route with a capacity")
     return None

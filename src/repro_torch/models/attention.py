@@ -101,13 +101,20 @@ def _block_mask(q_idx, k_idx, kind: str, window: int, chunk: int) -> torch.Tenso
     return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
 
 
-def _attend(q, k, v, bias) -> torch.Tensor:
-    """softmax(q k^T / sqrt(hd) + bias) v in f32 over the whole key axis,
+def _scale(hd: int, scale: Optional[float]) -> float:
+    """The softmax scale: ``scale`` where a config gives one, else
+    1 / sqrt(hd)."""
+    return scale or 1.0 / math.sqrt(hd)
+
+
+def _attend(q, k, v, bias, scale: Optional[float] = None) -> torch.Tensor:
+    """softmax(scale q k^T + bias) v in f32 over the whole key axis,
     decode's one query against the cache; q (B,Sq,H,hd), k/v (B,Sk,KV,hd),
-    bias broadcastable to (Sq, Sk).  -> (B, Sq, H*hd) in q's dtype."""
+    bias broadcastable to (Sq, Sk); ``scale`` 1 / sqrt(hd) unless given.
+    -> (B, Sq, H*hd) in q's dtype."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
-    qf = (q.float() * (1.0 / math.sqrt(hd))).reshape(B, Sq, KV, H // KV, hd)
+    qf = (q.float() * _scale(hd, scale)).reshape(B, Sq, KV, H // KV, hd)
     s = torch.einsum("bqkgh,bnkh->bqkgn", qf, k.float())
     s = s + bias[None, :, None, None, :]
     p = torch.softmax(s, dim=-1)
@@ -203,10 +210,10 @@ def _plan(Sq: int, Sk: int, kind: str, window: int, chunk: int, q_offset: int,
     return _Plan(Sq, Sk, bq, bk, nq, nk, tuple(tiles))
 
 
-def _layout(q, k, v, plan: _Plan):
-    """-> (qf (B, KV, nq*bq, G, hd) f32 scaled by 1/sqrt(hd), kf and vf
+def _layout(q, k, v, plan: _Plan, scale: Optional[float] = None):
+    """-> (qf (B, KV, nq*bq, G, hd) f32 times the softmax scale, kf and vf
     (B, KV, nk*bk, hd) f32), zero-padded to whole tiles."""
-    qf = _q_rows(q.float() * (1.0 / math.sqrt(q.shape[-1])), plan, k.shape[2])
+    qf = _q_rows(q.float() * _scale(q.shape[-1], scale), plan, k.shape[2])
     pad_k = (0, 0, 0, 0, 0, plan.nk * plan.bk - plan.Sk)
     kf = F.pad(k.float(), pad_k).permute(0, 2, 1, 3)
     vf = F.pad(v.float(), pad_k).permute(0, 2, 1, 3)
@@ -301,16 +308,16 @@ class _FlashAttention(torch.autograd.Function):
     forward, run on autograd's thread."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kind, window, chunk, q_offset, block_q, block_k):
+    def forward(ctx, q, k, v, kind, window, chunk, q_offset, block_q, block_k, scale):
         plan = _plan(q.shape[1], k.shape[1], kind, window, chunk, q_offset, block_q,
                      block_k)
         with obs_trace.span("model/attn/forward"):
             tiles = _Tiles(plan, kind, window, chunk, q_offset, q.device)
-            qf, kf, vf = _layout(q, k, v, plan)
+            qf, kf, vf = _layout(q, k, v, plan, scale)
             out, m, l = _flash_forward(qf, kf, vf, tiles)
             del qf, kf, vf
             ctx.save_for_backward(q, k, v, out, m, l)
-            ctx.tiles = tiles
+            ctx.tiles, ctx.scale = tiles, scale
             B, Sq, H, hd = q.shape
             return out.permute(0, 2, 1, 3, 4)[:, :Sq].reshape(B, Sq, H, hd).to(q.dtype)
 
@@ -323,7 +330,7 @@ class _FlashAttention(torch.autograd.Function):
             B, Sq, H, hd = q.shape
             KV = k.shape[2]
             G = H // KV
-            qf, kf, vf = _layout(q, k, v, p)
+            qf, kf, vf = _layout(q, k, v, p, ctx.scale)
             do = _q_rows(dout, p, KV)
             D = (do * out).sum(-1)
             dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
@@ -347,16 +354,17 @@ class _FlashAttention(torch.autograd.Function):
                     dk[:, :, cols] += torch.matmul(ds.transpose(-1, -2), qt)
                     del pt, p2, ds
                 dq[:, :, rows] = dqt.view(B, KV, p.bq, G, hd)
-            dq = dq.mul_(1.0 / math.sqrt(hd)).permute(0, 2, 1, 3, 4)[:, :Sq]
+            dq = dq.mul_(_scale(hd, ctx.scale)).permute(0, 2, 1, 3, 4)[:, :Sq]
             dk = dk.permute(0, 2, 1, 3)[:, :p.Sk]
             dv = dv.permute(0, 2, 1, 3)[:, :p.Sk]
             return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
-                    None, None, None, None, None, None)
+                    None, None, None, None, None, None, None)
 
 
 def _flash_attention(q, k, v, kind: str, window: int, chunk: int,
                      q_offset: int = 0, block_q: Optional[int] = None,
-                     block_k: Optional[int] = None) -> torch.Tensor:
+                     block_k: Optional[int] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
     """2D-tiled (flash-style) softmax attention. q (B,Sq,H,hd); k,v
     (B,Sk,KV,hd) -> (B,Sq,H,hd) in q's dtype (port of the reference's
     ``_flash_attention``, ``repro/models/attention.py:86``).
@@ -366,17 +374,20 @@ def _flash_attention(q, k, v, kind: str, window: int, chunk: int,
     denom, accum) per query in f32; query i sits at position q_offset + i,
     key j at position j; ragged lengths are zero-padded to whole tiles and
     padded keys masked.  Transient memory is one (B, bq, H, bk) f32 score
-    tile; the backward (``_FlashAttention``) keeps O(S) per layer.
+    tile; the backward (``_FlashAttention``) keeps O(S) per layer.  The
+    scores are scaled by ``scale``, 1 / sqrt(hd) unless given.
 
     On DTensors (a launcher's mesh) the tile loop runs on each rank's local
     shards through ``local_map`` (``_sharded_flash``), as the reference's
     partitioned program does."""
     if isinstance(q, AnyDTensor):
-        return _sharded_flash(q, k, v, kind, window, chunk, q_offset, block_q, block_k)
-    return _FlashAttention.apply(q, k, v, kind, window, chunk, q_offset, block_q, block_k)
+        return _sharded_flash(q, k, v, kind, window, chunk, q_offset, block_q, block_k,
+                              scale)
+    return _FlashAttention.apply(q, k, v, kind, window, chunk, q_offset, block_q, block_k,
+                                 scale)
 
 
-def _sharded_flash(q, k, v, kind, window, chunk, q_offset, block_q, block_k):
+def _sharded_flash(q, k, v, kind, window, chunk, q_offset, block_q, block_k, scale=None):
     """``_flash_attention`` of DTensors: batch sharded over the mesh's data
     axes and heads over the tensor-parallel axis wherever the dims divide
     (``sharding.layout``), the tiles of each rank's shards computed
@@ -407,7 +418,7 @@ def _sharded_flash(q, k, v, kind, window, chunk, q_offset, block_q, block_k):
             heads = pick(ql.shape[2], ql.device)
             kl, vl = kl.index_select(2, heads), vl.index_select(2, heads)
         return _FlashAttention.apply(ql, kl, vl, kind, window, chunk, q_offset, block_q,
-                                     block_k)
+                                     block_k, scale)
 
     return local_map(local, out_placements=qpl, in_placements=(qpl, kvpl, kvpl),
                      in_grad_placements=(qpl, kv_grad, kv_grad), device_mesh=mesh,
@@ -423,13 +434,15 @@ def _attention_causal(params, x, cfg_attn: dict, positions=None):
     q, k, v = _project_qkv(params, x, cfg_attn["num_heads"], cfg_attn["num_kv_heads"],
                            cfg_attn["head_dim"], cfg_attn["qk_norm"], cfg_attn["use_rope"],
                            positions, cfg_attn["rope_theta"])
-    out = _flash_attention(q, k, v, cfg_attn["kind"], cfg_attn["window"], cfg_attn["chunk"])
+    out = _flash_attention(q, k, v, cfg_attn["kind"], cfg_attn["window"], cfg_attn["chunk"],
+                           scale=cfg_attn.get("scale"))
     return project_out(merge_heads(out), params["wo"]), k, v
 
 
 def attention_train(params, x, *, cfg_attn: dict, positions=None):
     """cfg_attn keys: num_heads num_kv_heads head_dim kind window chunk
-    qk_norm use_rope rope_theta; ``positions`` (1 or B, S) rotate q and k
+    qk_norm use_rope rope_theta (and ``scale``, the softmax scale, where a
+    config gives one); ``positions`` (1 or B, S) rotate q and k
     (the masks stay on the sequence index, as the reference's)."""
     return _attention_causal(params, x, cfg_attn, positions)[0]
 
@@ -492,10 +505,10 @@ def attention_decode(params, x, cache: dict, pos: int, *, cfg_attn: dict,
     if isinstance(k, AnyDTensor):
         _write_slot(k, slot, k_new[:, 0])
         _write_slot(v, slot, v_new[:, 0])
-        return _sharded_attend(q, k, v, bias) @ params["wo"], cache
+        return _sharded_attend(q, k, v, bias, cfg_attn.get("scale")) @ params["wo"], cache
     k[:, slot] = k_new[:, 0]
     v[:, slot] = v_new[:, 0]
-    out = _attend(q, k, v, bias[None, :]) @ params["wo"]
+    out = _attend(q, k, v, bias[None, :], cfg_attn.get("scale")) @ params["wo"]
     return out, cache
 
 
@@ -524,7 +537,7 @@ def _write_slot(cache, slot: int, new) -> None:
               device_mesh=cache.device_mesh, redistribute_inputs=True)(cache, new)
 
 
-def _sharded_attend(q, k, v, bias) -> torch.Tensor:
+def _sharded_attend(q, k, v, bias, scale: Optional[float] = None) -> torch.Tensor:
     """``_attend`` of a DTensor cache whose slot axis may be sharded (the
     rules shard it over "model"), flash-decoding style: each rank scores its
     slots (its part of ``bias``), the per-row maxima meet in a max
@@ -543,7 +556,7 @@ def _sharded_attend(q, k, v, bias) -> torch.Tensor:
 
     def scores(ql, kl, vl):
         KV = kl.shape[2]
-        qf = (ql.float() * (1.0 / math.sqrt(hd))).reshape(ql.shape[0], Sq, KV, H // KV, hd)
+        qf = (ql.float() * _scale(hd, scale)).reshape(ql.shape[0], Sq, KV, H // KV, hd)
         s = torch.einsum("bqkgh,bnkh->bqkgn", qf, kl.float())
         s = s + bias[start:start + kl.shape[1]][None, None, None, None, :]
         m = s.amax(-1)

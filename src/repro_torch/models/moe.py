@@ -10,6 +10,19 @@ batched matmul, and the combine sums each token's K contributions in k order
 in the model dtype, as the reference's scatter does: no atomics, so a run on
 the card repeats itself bit for bit.
 
+A layer that holds a share of the experts (``held`` = (first id, count),
+one expert-parallel rank's) routes over all of them and adds the part of
+the result its own experts give.  ``dropless`` routing (granite-4.0-h's,
+in training and prefill too) drops nothing: the held assignments are sorted
+by expert and run as grouped products over each expert's rows
+(``torch._grouped_mm``) in a buffer sized for the most a call can have;
+the counts stay on the device, so no call waits for the host.  The whole
+layer's forward and backward are the ``model/moe/forward`` and
+``model/moe/backward`` spans (the backward timed on autograd's thread), and
+the tally ``moe/held_rows`` (``obs.trace.tally``) counts the assignments
+held experts computed, beside ``moe/tokens``, in every call (a remat
+recompute's too).
+
 The dispatcher reads the MoE specs a launcher installed
 (``sharding.context.set_moe_specs``), as the reference's does; without any,
 the scatter path runs, its tensors passing through ``constrain_moe`` at the
@@ -30,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import _dense_init, init_mlp, mlp
+from repro_torch.obs import trace as obs_trace
 from repro_torch.sharding import layout
 from repro_torch.sharding.context import constrain_moe, get_moe_specs
 from repro_torch.sharding.layout import AnyDTensor
@@ -53,16 +67,19 @@ def moe_apply(params: dict, x: torch.Tensor, specs: Optional[dict] = None,
 
 
 def init_moe(gen, d_model: int, d_ff: int, num_experts: int, gated: bool,
-             shared_expert: bool, dtype, device, lead=()) -> dict:
-    E = num_experts
+             shared_expert: bool, dtype, device, lead=(), shared_d_ff: int = 0,
+             held: int = 0) -> dict:
+    """The router over all ``num_experts``, the ``held`` experts (all when
+    0) and the shared expert, of width ``shared_d_ff`` (``d_ff`` when 0)."""
+    E, n = num_experts, held or num_experts
     p = {"router": _dense_init(gen, (d_model, E), torch.float32, device, scale=0.02,
                                lead=lead),
-         "w_in": _dense_init(gen, (E, d_model, d_ff), dtype, device, lead=lead),
-         "w_out": _dense_init(gen, (E, d_ff, d_model), dtype, device, lead=lead)}
+         "w_in": _dense_init(gen, (n, d_model, d_ff), dtype, device, lead=lead),
+         "w_out": _dense_init(gen, (n, d_ff, d_model), dtype, device, lead=lead)}
     if gated:
-        p["w_gate"] = _dense_init(gen, (E, d_model, d_ff), dtype, device, lead=lead)
+        p["w_gate"] = _dense_init(gen, (n, d_model, d_ff), dtype, device, lead=lead)
     if shared_expert:
-        p["shared"] = init_mlp(gen, d_model, d_ff, gated, dtype, device, lead)
+        p["shared"] = init_mlp(gen, d_model, shared_d_ff or d_ff, gated, dtype, device, lead)
     return p
 
 
@@ -106,14 +123,20 @@ def route(router: torch.Tensor, xt: torch.Tensor, num_experts: int, top_k: int,
     return route_logits(xt.float() @ router, num_experts, top_k, capacity_factor, no_drop)
 
 
+def _gates(logits: torch.Tensor, top_k: int):
+    """f32 router logits (T, E) -> (softmax (T, E), the top-k gates
+    renormalized over the k (T, K), their experts (T, K))."""
+    probs = torch.softmax(logits, dim=-1)
+    gate_w, gate_i = torch.topk(probs, top_k, dim=-1)
+    return probs, gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9), gate_i
+
+
 def route_logits(logits: torch.Tensor, num_experts: int, top_k: int,
                  capacity_factor: float, no_drop: bool = False) -> Routing:
     """``route`` from the f32 router logits (T, E)."""
     T, E, K = logits.shape[0], num_experts, top_k
     device = logits.device
-    probs = torch.softmax(logits, dim=-1)
-    gate_w, gate_i = torch.topk(probs, K, dim=-1)
-    gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    probs, gate_w, gate_i = _gates(logits, K)
     C = T if no_drop else max(1, int(T * K * capacity_factor / E))
     flat_e = gate_i.reshape(-1)
     sorted_e, sort_idx = torch.sort(flat_e, stable=True)
@@ -125,29 +148,139 @@ def route_logits(logits: torch.Tensor, num_experts: int, top_k: int,
 
 def moe_ffn(params: dict, x: torch.Tensor, *, num_experts: int, top_k: int,
             capacity_factor: float, act: str, gated: bool, shared_expert: bool,
-            no_drop: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+            no_drop: bool = False, held: Optional[Tuple[int, int]] = None,
+            dropless: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (output, aux loss).  ``no_drop=True`` sets the
-    capacity to T so no assignment is dropped (decode).  A DTensor ``x``
-    runs on each rank's shards (``_sharded_moe_ffn``)."""
+    capacity to T so no assignment is dropped (decode); ``dropless`` routes
+    with no capacity at all (``_dropless``).  ``held`` = (e0, n): ``params``
+    holds experts e0 .. e0+n-1 of the ``num_experts`` the router scores, and
+    the output is their part with the shared expert's, routed dropless.  A
+    DTensor ``x`` runs on each rank's shards (``_sharded_moe_ffn``)."""
     if isinstance(x, AnyDTensor):
+        if held is not None or dropless:
+            raise NotImplementedError("a held share or dropless routing on a mesh")
         return _sharded_moe_ffn(params, x, num_experts=num_experts, top_k=top_k,
                                 capacity_factor=capacity_factor, act=act, gated=gated,
                                 shared_expert=shared_expert, no_drop=no_drop)
     B, S, d = x.shape
     T, E, K = B * S, num_experts, top_k
-    combined, r, counts, xt = _dispatch(params, x, E, K, capacity_factor, act, gated,
-                                        no_drop)
-    # load-balance aux loss (Switch): E * sum_e frac_tokens_e * frac_prob_e
-    aux = E * torch.sum(r.probs.mean(0) * (counts / (T * K)))
-    if shared_expert:
-        combined = combined + mlp(params["shared"], xt, act=act, gated=gated)
-    return combined.reshape(B, S, d), aux
+    marks = None
+    if obs_trace.enabled() and torch.is_grad_enabled() and x.requires_grad:
+        marks = _SpanHolder("model/moe/backward")
+    with obs_trace.span("model/moe/forward"):
+        if marks is not None:
+            x = _Mark.apply(x, marks, False)        # its backward ends the layer's
+        if dropless or held is not None:
+            combined, probs, counts, xt, computed = _dropless(params, x, E, K, act, gated,
+                                                              held)
+        else:
+            combined, r, counts, xt = _dispatch(params, x, E, K, capacity_factor, act,
+                                                gated, no_drop)
+            probs, computed = r.probs, None
+        # load-balance aux loss (Switch): E * sum_e frac_tokens_e * frac_prob_e
+        aux = E * torch.sum(probs.mean(0) * (counts / (T * K)))
+        if shared_expert:
+            combined = combined + mlp(params["shared"], xt, act=act, gated=gated)
+        out = combined.reshape(B, S, d)
+        if obs_trace.enabled():
+            if computed is None:                    # capacity routing: the kept
+                computed = r.keep.sum()
+            obs_trace.tally("moe/held_rows", computed)
+            obs_trace.tally("moe/tokens", T)
+        if marks is not None:
+            out = _Mark.apply(out, marks, True)     # its backward starts the layer's
+    return out, aux
 
 
-def _counts(r: Routing, E: int) -> torch.Tensor:
+class _SpanHolder:
+    """The span one layer call's backward keeps open between its marks."""
+    __slots__ = ("name", "span")
+
+    def __init__(self, name: str):
+        self.name, self.span = name, None
+
+
+class _Mark(torch.autograd.Function):
+    """The identity; its backward opens (``opening``) or closes the holder's
+    span.  On a layer's output and input, the span covers the layer's
+    backward, on autograd's thread (a remat recompute's marks are never
+    run backward).  The opening mark saves its input and reads it back
+    before it opens the span: under remat that read recomputes the block,
+    so the span holds the layer's backward alone."""
+
+    @staticmethod
+    def forward(ctx, x, holder: _SpanHolder, opening: bool):
+        ctx.holder, ctx.opening = holder, opening
+        if opening:
+            ctx.save_for_backward(x)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        h = ctx.holder
+        if ctx.opening:
+            ctx.saved_tensors                       # the recompute, if any, runs here
+            h.span = obs_trace.span(h.name)
+            h.span.__enter__()
+        elif h.span is not None:
+            h.span.__exit__(None, None, None)
+            h.span = None
+        return g, None, None
+
+
+def _grouped_ffn(p: dict, rows: torch.Tensor, ends: torch.Tensor, act: str,
+                 gated: bool) -> torch.Tensor:
+    """The held experts' FFN over ``rows`` (R, d) sorted by expert, expert
+    e's rows ending at ``ends[e]`` (int32, on the device) -> (R, d).  No
+    product computes a row past ``ends[-1]``: those rows of the result (and
+    of its input's gradient) are undefined."""
+    h = torch._grouped_mm(rows, p["w_in"], offs=ends)
+    g = torch._grouped_mm(rows, p["w_gate"], offs=ends) if gated else None
+    return torch._grouped_mm(_ffn_act(h, g, act, gated), p["w_out"], offs=ends)
+
+
+def _dropless(params: dict, x: torch.Tensor, E: int, K: int, act: str, gated: bool,
+              held: Optional[Tuple[int, int]] = None):
+    """The held experts' part of ``moe_ffn`` with no assignment dropped ->
+    (their combined output (T, d), the router softmax (T, E), assignments
+    per expert (E,) f32, the tokens (T, d), the held assignments (0-d, on
+    the device)).
+
+    The (token, k) assignments are sorted by held expert (a stable sort:
+    token order within an expert), those to other experts after them.  At
+    most ``R = T * min(K, n)`` are held (a token's k experts are distinct),
+    so the first R sorted rows hold every held assignment, whatever the
+    routing: the products run over each expert's rows of that buffer
+    (``_grouped_ffn``), and rows past the held ones are zeros whose
+    gradient is dropped.  Each token then sums its k gated outputs in one
+    reduction, with no atomics.  No gather repeats an index more than K
+    times: the backward's accumulation of a gather serializes over
+    repeats."""
+    B, S, d = x.shape
+    T = B * S
+    e0, n = held if held is not None else (0, E)
+    xt = x.reshape(T, d)
+    probs, gate_w, gate_i = _gates(xt.float() @ params["router"], K)
+    local = gate_i.reshape(-1) - e0
+    mine = (local >= 0) & (local < n)
+    key, order = torch.sort(torch.where(mine, local, n), stable=True)
+    ends = torch.searchsorted(key, torch.arange(1, n + 1, device=x.device)).to(torch.int32)
+    R = T * min(K, n)
+    valid = (torch.arange(R, device=x.device) < ends[-1])[:, None]
+    # rows past the held ones are zeros whose gradient is dropped (their
+    # gathers' indices, like every other, repeat a token at most K times)
+    y = _grouped_ffn(params, torch.where(valid, xt[order[:R] // K], 0.0), ends, act, gated)
+    # each assignment's row of y: a held one's lies below ends[-1] <= R; the
+    # others' are masked out (taken mod R, the gather repeats no row often)
+    pos = torch.empty_like(order).scatter_(0, order, torch.arange(T * K, device=x.device))
+    contrib = torch.where(mine[:, None], y[pos % R], 0.0) * gate_w.reshape(-1, 1).to(x.dtype)
+    return contrib.view(T, K, d).sum(1), probs, _counts(gate_i, E), xt, ends[-1]
+
+
+def _counts(gate_i: torch.Tensor, E: int) -> torch.Tensor:
     """Assignments per expert (E,) f32: whole numbers, so exact in any
     order; a shape that does not depend on the data, unlike ``bincount``."""
-    flat = r.gate_i.reshape(-1)
+    flat = gate_i.reshape(-1)
     return torch.zeros(E, dtype=torch.float32, device=flat.device).index_add_(
         0, flat, torch.ones(flat.shape, dtype=torch.float32, device=flat.device))
 
@@ -162,7 +295,7 @@ def _dispatch(params: dict, x: torch.Tensor, E: int, K: int, capacity_factor: fl
     T = B * S
     xt = constrain_moe("tokens", x.reshape(T, d))
     r = route(params["router"], xt, E, K, capacity_factor, no_drop)
-    counts = _counts(r, E)
+    counts = _counts(r.gate_i, E)
 
     C = r.capacity
     flat_e, keep = r.gate_i.reshape(-1), r.keep
@@ -348,7 +481,7 @@ def _lead_grad(x, lead: bool):
 def _aux_loss(r: Routing, E: int, K: int) -> torch.Tensor:
     """The Switch load-balance loss of this rank's tokens."""
     T = r.probs.shape[0]
-    return E * torch.sum(r.probs.mean(0) * (_counts(r, E) / (T * K)))
+    return E * torch.sum(r.probs.mean(0) * (_counts(r.gate_i, E) / (T * K)))
 
 
 def _expert_axis(mesh):

@@ -12,9 +12,13 @@ A block is attention (global, sliding-window or chunked) or a Mamba2 SSD
 mixer, then cross-attention to the encoder memory (encoder-decoder configs),
 then a dense or MoE MLP.  ``forward_train`` and ``loss_fn`` run under
 autograd (the trainer's backward); ``remat`` "dots" or "full" wraps each
-period of blocks in ``torch.utils.checkpoint``, which changes memory, not
-values.  Prefill uses the MoE capacity (tokens can be dropped), decode does
-not (``no_drop``), as the reference does.
+block in ``torch.utils.checkpoint`` (the reference wraps a period; a
+period of one block is the same), which changes memory, not values.
+Prefill uses the MoE capacity (tokens can be dropped), decode does not
+(``no_drop``), as the reference does; a ``dropless`` config drops in
+neither.  The port's own multipliers (granite-4.0-h's) scale the
+embedding's output and each mixer and MLP branch before its residual add,
+and divide the logits.
 """
 from __future__ import annotations
 
@@ -53,18 +57,40 @@ def period_info(cfg: ModelConfig):
 
 
 def _attn_cfg(cfg: ModelConfig, kind: str) -> dict:
-    return dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+    acfg = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                 head_dim=cfg.head_dim, kind=kind, window=cfg.sliding_window,
                 chunk=cfg.attn_chunk, qk_norm=cfg.qk_norm,
                 # llama4 iRoPE: the global (non-chunked) layers are NoPE
-                use_rope=not (cfg.attn_chunk > 0 and kind == "attn"),
+                use_rope=not (cfg.nope or (cfg.attn_chunk > 0 and kind == "attn")),
                 rope_theta=cfg.rope_theta)
+    if cfg.attn_scale:
+        acfg["scale"] = cfg.attn_scale
+    return acfg
 
 
 def _moe_kw(cfg: ModelConfig) -> dict:
-    return dict(num_experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
-                capacity_factor=cfg.moe.capacity_factor, act=cfg.mlp_act,
-                gated=cfg.mlp_gated, shared_expert=cfg.moe.shared_expert)
+    kw = dict(num_experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+              capacity_factor=cfg.moe.capacity_factor, act=cfg.mlp_act,
+              gated=cfg.mlp_gated, shared_expert=cfg.moe.shared_expert)
+    if cfg.moe.held:
+        kw["held"] = (0, cfg.moe.held)
+    if cfg.moe.dropless:
+        kw["dropless"] = True
+    return kw
+
+
+def _branch(cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """A mixer's or MLP's output as its residual add takes it."""
+    return h if cfg.residual_multiplier == 1.0 else h * cfg.residual_multiplier
+
+
+def _scaled_embeds(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    return x if cfg.embedding_multiplier == 1.0 else x * cfg.embedding_multiplier
+
+
+def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    lg = unembed(params["embed"], x)
+    return lg if cfg.logits_scaling == 1.0 else lg / cfg.logits_scaling
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -93,7 +119,7 @@ def _init_block(gen, cfg: ModelConfig, kind: str, use_moe: bool, dtype, device,
         if use_moe:
             p["moe"] = moe_lib.init_moe(gen, d, cfg.d_ff, cfg.moe.num_experts,
                                         cfg.mlp_gated, cfg.moe.shared_expert, dtype,
-                                        device, lead)
+                                        device, lead, cfg.moe.shared_d_ff, cfg.moe.held)
         else:
             p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.mlp_gated, dtype, device, lead)
     return p
@@ -269,7 +295,7 @@ def _apply_block(bp, cfg: ModelConfig, kind: str, use_moe: bool, x, enc_out):
                                            return_cache=True)
     else:
         h, cache = attn_lib.attention_prefill(bp["attn"], h, cfg_attn=_attn_cfg(cfg, kind))
-    x = x + h
+    x = x + _branch(cfg, h)
     if cfg.cross_attn and enc_out is not None:
         x = x + _cross_attention(bp["xattn"], rmsnorm(bp["norm_x"], x, cfg.norm_eps),
                                  enc_out, cfg)
@@ -279,48 +305,46 @@ def _apply_block(bp, cfg: ModelConfig, kind: str, use_moe: bool, x, enc_out):
             h, aux = moe_lib.moe_apply(bp["moe"], h, **_moe_kw(cfg))
         else:
             h = mlp(bp["mlp"], h, act=cfg.mlp_act, gated=cfg.mlp_gated)
-        x = x + h
+        x = x + _branch(cfg, h)
     return x, aux, cache
 
 
-def _period_body(cfg: ModelConfig, x, bps, enc_out=None, on_cache=None):
-    """One period of blocks over the whole sequence -> (x, the period's MoE
-    aux loss, None without MoE).  ``on_cache(j, cache)`` receives each
-    block's mixer cache, in layer order."""
-    P, _, pos_kinds, pos_moe = period_info(cfg)
-    aux = None
-    for j in range(P):
-        x, a, cache = _apply_block(bps[f"pos{j}"], cfg, pos_kinds[j], pos_moe[j], x,
-                                   enc_out)
-        if on_cache is not None:
-            on_cache(j, cache)
-        if a is not None:
-            aux = a if aux is None else aux + a
+def _remat_block(bp, cfg: ModelConfig, kind: str, use_moe: bool, x, enc_out):
+    """``_apply_block`` without the mixer's cache: what remat recomputes."""
+    x, aux, _ = _apply_block(bp, cfg, kind, use_moe, x, enc_out)
     return x, aux
 
 
 def _trunk(params, cfg: ModelConfig, x: torch.Tensor, enc_out=None, on_cache=None,
            remat: str = "none"):
     """Run every block over embedded inputs ``x`` (B, S, D) -> (final-normed
-    hidden states, summed aux loss).  ``remat`` other than "none"
-    recomputes each period in the backward (``torch.utils.checkpoint``); it
-    takes no ``on_cache``."""
-    n_periods = period_info(cfg)[1]
+    hidden states, summed aux loss).  ``on_cache(j, cache)`` receives each
+    block's mixer cache, in layer order.  ``remat`` other than "none"
+    recomputes each block in the backward (``torch.utils.checkpoint``), so
+    the backward holds one block's activations, not a period's (one period
+    may be a whole model's share on a card); it takes no ``on_cache``."""
+    P, n_periods, pos_kinds, pos_moe = period_info(cfg)
     auxes = []
     x = constrain_named("act", x)
     for i in range(n_periods):
         bps = _period(params["blocks"], i)
-        if remat == "none" or not _needs_grad(x, bps):
-            x, aux = _period_body(cfg, x, bps, enc_out, on_cache)
-        else:
-            # the blocks draw no random numbers: no RNG state to save, and
-            # saving it would synchronize with the card every period
-            x, aux = torch.utils.checkpoint.checkpoint(
-                _period_body, cfg, x, bps, enc_out, use_reentrant=False,
-                preserve_rng_state=False)
-        # the residual stream at each period boundary (what remat saves)
-        # takes the launcher's activation placements, as the reference's
-        # carry constraint
+        aux = None
+        for j in range(P):
+            bp = bps[f"pos{j}"]
+            if remat == "none" or not _needs_grad(x, bp):
+                x, a, cache = _apply_block(bp, cfg, pos_kinds[j], pos_moe[j], x, enc_out)
+                if on_cache is not None:
+                    on_cache(j, cache)
+            else:
+                # the blocks draw no random numbers: no RNG state to save, and
+                # saving it would synchronize with the card every block
+                x, a = torch.utils.checkpoint.checkpoint(
+                    _remat_block, bp, cfg, pos_kinds[j], pos_moe[j], x, enc_out,
+                    use_reentrant=False, preserve_rng_state=False)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        # the residual stream at each period boundary takes the launcher's
+        # activation placements, as the reference's carry constraint
         x = constrain_named("act", x)
         auxes.append(aux)
     aux = torch.stack(auxes).sum() if cfg.moe else \
@@ -328,10 +352,10 @@ def _trunk(params, cfg: ModelConfig, x: torch.Tensor, enc_out=None, on_cache=Non
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
-def _needs_grad(x: torch.Tensor, bps: dict) -> bool:
-    """Whether autograd will record this period (else remat is moot)."""
+def _needs_grad(x: torch.Tensor, bp: dict) -> bool:
+    """Whether autograd will record this block (else remat is moot)."""
     return torch.is_grad_enabled() and (
-        x.requires_grad or any(t.requires_grad for t in tree_leaves(bps)))
+        x.requires_grad or any(t.requires_grad for t in tree_leaves(bp)))
 
 
 def _inputs(params, cfg: ModelConfig, batch: dict, x, remat: str = "none"):
@@ -357,11 +381,11 @@ def forward_train(params, cfg: ModelConfig, batch: dict, remat: str = "dots"):
     ``"src_embeds"`` feed the vision stub and the encoder."""
     if remat not in ("none", "dots", "full"):
         raise ValueError(f"unknown remat {remat!r}")
-    x = batch["inputs_embeds"] if "inputs_embeds" in batch else \
-        embed(params["embed"], batch["tokens"])
+    x = _scaled_embeds(cfg, batch["inputs_embeds"] if "inputs_embeds" in batch else
+                       embed(params["embed"], batch["tokens"]))
     x, enc_out = _inputs(params, cfg, batch, x, remat)
     x, aux = _trunk(params, cfg, x, enc_out=enc_out, remat=remat)
-    return unembed(params["embed"], x), aux
+    return _logits(params, cfg, x), aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, remat: str = "dots"):
@@ -394,9 +418,10 @@ def prefill(params, cfg: ModelConfig, batch: dict, cache_len: int = 0):
             cache = _ring_from_prefill(cache, _attn_cfg(cfg, pos_kinds[j]), S, cache_len)
         caches[f"pos{j}"].append(cache)
 
-    x, enc_out = _inputs(params, cfg, batch, embed(params["embed"], tokens))
+    x, enc_out = _inputs(params, cfg, batch,
+                          _scaled_embeds(cfg, embed(params["embed"], tokens)))
     x, _ = _trunk(params, cfg, x, enc_out=enc_out, on_cache=keep)
-    logits = unembed(params["embed"], x[:, -1:])
+    logits = _logits(params, cfg, x[:, -1:])
     layers = {name: {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
               for name, cs in caches.items()}
     cache = {"layers": layers, "pos": int(S)}
@@ -411,7 +436,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: dict):
     advances.  MoE layers route without capacity drops."""
     P, n_periods, pos_kinds, pos_moe = period_info(cfg)
     pos = int(cache["pos"])
-    x = embed(params["embed"], token)
+    x = _scaled_embeds(cfg, embed(params["embed"], token))
     enc_memory = cache.get("enc_memory")
     acfgs = {j: _attn_cfg(cfg, kind) for j, kind in enumerate(pos_kinds) if kind != MAMBA}
     biases = {j: attn_lib.decode_bias(a, cache["layers"][f"pos{j}"]["k"].shape[2], pos,
@@ -432,7 +457,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: dict):
                 h, _ = attn_lib.attention_decode(
                     bp["attn"], h, {"k": lc["k"][i], "v": lc["v"][i]}, pos,
                     cfg_attn=acfgs[j], bias=biases[j])
-            x = residual_add(x, h)
+            x = residual_add(x, _branch(cfg, h))
             if cfg.cross_attn and enc_memory is not None:
                 x = x + _cross_attention(bp["xattn"], rmsnorm(bp["norm_x"], x, cfg.norm_eps),
                                          enc_memory, cfg)
@@ -442,8 +467,8 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: dict):
                     h, _ = moe_lib.moe_ffn(bp["moe"], h, **_moe_kw(cfg), no_drop=True)
                 else:
                     h = mlp(bp["mlp"], h, act=cfg.mlp_act, gated=cfg.mlp_gated)
-                x = x + h
+                x = x + _branch(cfg, h)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = unembed(params["embed"], x)
+    logits = _logits(params, cfg, x)
     cache["pos"] = pos + 1
     return logits, cache

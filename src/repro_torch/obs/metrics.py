@@ -10,6 +10,8 @@ as time series keyed by round.  The ingest hooks:
   byte/time gauges from a ``RoundCost``;
 * :meth:`MetricsRegistry.ingest_ledger` — ``CommLedger`` record bytes per
   tag and per round as counters;
+* :meth:`MetricsRegistry.ingest_tallies` — a trace's device tallies (the
+  MoE layer's ``moe/held_rows`` and ``moe/tokens``) as counters;
 * :meth:`MetricsRegistry.observe_fault_plan`,
   :meth:`MetricsRegistry.observe_cohort_round`,
   :meth:`MetricsRegistry.observe_train_step` and
@@ -281,6 +283,13 @@ class MetricsRegistry:
                     out[name[len("serve/"):]] = (
                         m.total if isinstance(m, Counter) else m.value)
         return out
+
+    def ingest_tallies(self, tracer) -> None:
+        """The trace's device tallies (``obs.trace.Tracer.tallies``, e.g.
+        ``moe/held_rows``) as counters: one host read of each, made only
+        here, when a report or a benchmark asks."""
+        for name, value in tracer.tallies().items():
+            self.counter(name).inc(value)
 
     def observe_train_step(self, step: int, metrics: Dict[str, float]) -> None:
         """Loss/grad-norm (host-fetched floats) next to the byte series."""

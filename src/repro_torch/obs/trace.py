@@ -26,6 +26,13 @@ Design constraints:
   buffer: a long run keeps the most recent window instead of growing without
   bound, and ``n_evicted`` says how much history scrolled off.
 
+* **Device tallies.**  ``tally(name, value)`` adds a count to the current
+  trace: a number on the host, or a 0-d tensor summed on its device, so a
+  count that only the device knows (a routing's held rows) costs no host
+  sync per call.  Tallies reset with the ring buffer; ``Tracer.tallies()``
+  reads them (one sync), and ``MetricsRegistry.ingest_tallies`` turns them
+  into counters when a report or a benchmark asks.
+
 Usage::
 
     from repro_torch.obs import trace
@@ -104,6 +111,7 @@ class Tracer:
         self._recorded = 0      # total spans ever recorded
         self.meta: Dict[str, object] = {}
         self.epoch_ns = time.perf_counter_ns()
+        self._tallies: Dict[str, object] = {}
 
     # -- recording ----------------------------------------------------------
     def record(self, sp: Span) -> None:
@@ -119,6 +127,26 @@ class Tracer:
             self._recorded = 0
             self.meta = {}
             self.epoch_ns = time.perf_counter_ns()
+            self._tallies = {}
+
+    def tally(self, name: str, value) -> None:
+        """Add the count ``value`` (a number, or a 0-d integer tensor
+        accumulated on its device: no host sync) to the tally ``name``."""
+        with self._lock:
+            cur = self._tallies.get(name)
+            if cur is None:
+                cur = value.detach().clone().long() if hasattr(value, "detach") else value
+            elif hasattr(cur, "add_"):
+                cur.add_(value)
+            else:
+                cur = cur + value
+            self._tallies[name] = cur
+
+    def tallies(self) -> Dict[str, float]:
+        """Every tally since the last reset, read to the host."""
+        with self._lock:
+            items = list(self._tallies.items())
+        return {k: float(v) for k, v in items}
 
     # -- introspection ------------------------------------------------------
     @property
@@ -183,6 +211,13 @@ def enable(device_events: bool = False, profiler_annotations: Optional[bool] = N
 def disable() -> None:
     global _enabled, _device_events
     _enabled, _device_events = False, False
+
+
+def tally(name: str, value) -> None:
+    """Add ``value`` to the current trace's tally ``name``
+    (``Tracer.tally``); a no-op while tracing is off."""
+    if _enabled:
+        _tracer.tally(name, value)
 
 
 def set_meta(**kv) -> None:

@@ -1,5 +1,7 @@
 """The port's configs (``repro_torch/configs``) against the JAX package's:
-all ten registered, every field, ``param_count``, ``active_param_count``,
+all ten registered (and ``PORT_ONLY``, the port's own architectures), every
+field of the JAX package's equal and each field only the port has at its
+default (a no-op), ``param_count``, ``active_param_count``,
 ``padded_vocab`` and ``reduced()`` equal, and the full-sequence forward of
 each dense ``reduced()`` config (f32) within atol 2e-5 of
 ``repro.models.forward_train`` from the same parameters (the port's
@@ -23,6 +25,9 @@ ATOL = 2e-5
 DENSE = ("chameleon-34b", "h2o-danube-1.8b", "nemotron-4-15b", "qwen1.5-110b", "qwen1.5-4b")
 OTHER = ("dbrx-132b", "jamba-1.5-large-398b", "llama4-scout-17b-a16e", "mamba2-2.7b",
          "seamless-m4t-large-v2")
+# architectures the JAX package lacks (held to a plain reference instead:
+# tests/test_torch_granite.py)
+PORT_ONLY = ("granite-4.0-h-small",)
 
 
 @pytest.fixture(scope="module")
@@ -35,20 +40,42 @@ def jx():
 
 
 def test_the_port_registers_the_five_dense_configs():
-    """... and every other config of the JAX package."""
+    """... and every other config of the JAX package, and exactly
+    ``PORT_ONLY`` besides."""
     from repro.configs import list_configs
-    assert t_list_configs() == sorted(DENSE + OTHER) == list_configs()
+    assert sorted(DENSE + OTHER) == list_configs()
+    assert t_list_configs() == sorted(DENSE + OTHER + PORT_ONLY)
+
+
+def _port_fields(tcfg, cfg) -> dict:
+    """The port config's fields as a dict: the JAX package's fields (nested
+    sub-configs too) as they are, and every field only the port has checked
+    to hold its default and left out."""
+    def walk(t, j):
+        if not dataclasses.is_dataclass(t):
+            return t
+        out = {}
+        for f in dataclasses.fields(t):
+            v = getattr(t, f.name)
+            if f.name in {g.name for g in dataclasses.fields(j)}:
+                jv = getattr(j, f.name)
+                out[f.name] = walk(v, jv) if dataclasses.is_dataclass(jv) else \
+                    dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v
+            else:
+                assert v == f.default, (t.__class__.__name__, f.name, v)
+        return out
+    return walk(tcfg, cfg)
 
 
 @pytest.mark.parametrize("arch", DENSE + OTHER)
 def test_fields_and_param_count_match_jax(jx, arch):
     get_config = jx[2]
     cfg, tcfg = get_config(arch), t_get_config(arch)
-    assert dataclasses.asdict(tcfg) == dataclasses.asdict(cfg)
+    assert _port_fields(tcfg, cfg) == dataclasses.asdict(cfg)
     assert tcfg.param_count() == cfg.param_count()
     assert tcfg.active_param_count() == cfg.active_param_count()
     assert tcfg.padded_vocab() == cfg.padded_vocab()
-    assert dataclasses.asdict(tcfg.reduced()) == dataclasses.asdict(cfg.reduced())
+    assert _port_fields(tcfg.reduced(), cfg.reduced()) == dataclasses.asdict(cfg.reduced())
     r, tr = cfg.reduced(), tcfg.reduced()
     assert (tr.param_count(), tr.active_param_count(), tr.padded_vocab()) == \
         (r.param_count(), r.active_param_count(), r.padded_vocab())

@@ -43,8 +43,9 @@ import pytest
 import torch
 
 from repro.configs import get_config as jget_config
+from repro.configs import list_configs      # the JAX package's architectures
 from repro.configs.base import INPUT_SHAPES as J_SHAPES
-from repro_torch.configs import get_config, list_configs
+from repro_torch.configs import get_config
 from repro_torch.configs.base import INPUT_SHAPES
 
 torch.set_num_threads(2)

@@ -36,9 +36,10 @@ import pytest
 import torch
 
 from repro.configs import get_config as jget_config
+from repro.configs import list_configs
 from repro.configs.base import INPUT_SHAPES as J_SHAPES
 from repro.launch import specs as jspecs
-from repro_torch.configs import get_config, list_configs
+from repro_torch.configs import get_config
 from repro_torch.configs.base import INPUT_SHAPES, InputShape
 from repro_torch.launch import dryrun as tdr
 from repro_torch.launch import specs as tspecs
@@ -46,7 +47,7 @@ from repro_torch.sharding import rules
 
 torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCHS = sorted(list_configs())
+ARCHS = sorted(list_configs())     # the JAX package's: the port held to its
 PARITY_ARCHS = ("qwen1.5-4b", "h2o-danube-1.8b", "mamba2-2.7b", "seamless-m4t-large-v2")
 MOE_ARCH = "dbrx-132b"
 MESHES = {"2x2x2": ((2, 2, 2), ("pod", "data", "model")), "4x2": ((4, 2), ("data", "model"))}

@@ -25,9 +25,9 @@ from types import SimpleNamespace
 import pytest
 import torch
 
+from repro.configs import list_configs
 from repro_torch import models as tm
 from repro_torch.configs import get_config as t_get_config
-from repro_torch.configs import list_configs
 from repro_torch.sharding import context as tctx
 from repro_torch.sharding import rules as trules
 from repro_torch.utils.tree import tree_map
@@ -38,7 +38,7 @@ MESHES = {"16x16": SimpleNamespace(shape={"data": 16, "model": 16},
                                    axis_names=("data", "model")),
           "2x16x16": SimpleNamespace(shape={"pod": 2, "data": 16, "model": 16},
                                      axis_names=("pod", "data", "model"))}
-ARCHS = sorted(list_configs())
+ARCHS = sorted(list_configs())     # the JAX package's: the rules held to its
 
 
 @pytest.fixture(scope="module")
