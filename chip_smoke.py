@@ -7,7 +7,7 @@ Phases, each printed on its own ``[phase]`` line; any failure raises and
 the script exits nonzero without printing a result:
 
   device   the card's name and power limit (nvidia-smi); no card -> exit 1
-  build    nvcc builds kernels B1-B8 from src/repro_torch/kernels/csrc/ (one
+  build    nvcc builds kernels B1-B8 and D1 from src/repro_torch/kernels/csrc/ (one
            nvcc per source, started together, then one link)
   kernels  B1-B6 against their plain PyTorch versions on the card, bit for
            bit: B1-B3 on a ragged tensor with zero rows (bits 8 and 4) and a
@@ -29,7 +29,8 @@ the script exits nonzero without printing a result:
            PersonalizedBatcher answers 6 requests over 2 slots.  Every
            prefill and decode step is checked bitwise against serving the
            users' materialized params; serve/page_in ledger bytes must equal
-           the payload bytes of the misses; B1-B3 must have launched.  The
+           the payload bytes of the misses; B1-B3 must have launched, and
+           D1 (the delta apply) once at every delta-path slot call.  The
            first put's B2, B1 and B3 and the first page-in's B3 are held
            bit for bit to their plain versions on their own inputs, 2^20
            rows at a time.
@@ -237,7 +238,11 @@ the script exits nonzero without printing a result:
            and B3's torch.mul yardstick; prune_scored's old route
            (statistics / plain scores + torch.topk / tau-given B8) against
            the selecting route (statistics / selecting B8), torch.topk
-           alone, and one wanda call's peak allocation on each route
+           alone, and one wanda call's peak allocation on each route;
+           D1 at the full layout of mamba2-2.7b for one dense user (every
+           block its own pool row), bit for bit against its plain version,
+           beside its byte bound, the plain version and each of the three
+           passes it fuses (gather, f32 add, the casts into the tree)
 
 The last three lines are the kernels JSON, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -279,6 +284,8 @@ PRUNE_INFO = (
     ("B8", "wanda_prune_2d", "src/repro/kernels/wanda_score.py:60"),
 )
 PRUNE_SOURCE = "src/repro_torch/kernels/csrc/prune.cu"
+DELTA_INFO = ("D1", "delta_apply", "none: the JAX package's delta apply is XLA's fusion "
+              "inside one jit", "src/repro_torch/kernels/csrc/delta.cu")
 B8_MODES = ("wanda", "ria", "symwanda")
 # id, wrapper name, TPU kernel replaced, source, integer or f32 operations
 # per coordinate (B4/B5: compare or shift, mask, or / store)
@@ -689,29 +696,24 @@ class MemMarks:
             f"; overall peak {max(p for _, p, _ in self.marks) / 2**30:.2f}"
 
 
-def breakdown(cfg, store, pool, engine, device, phase, prompt, max_len):
-    """Where one slot's delta-path decode step goes: the f32 ``eff`` rebuild
-    (gather + add), the cast to the bf16 tree, and the model's decode_step
-    (CUDA events, medians)."""
+def breakdown(cfg, pool, engine, device, phase, prompt, max_len):
+    """Where one slot's delta-path decode step goes: the delta apply into
+    the engine's tree (D1) and the model's decode_step (CUDA events,
+    medians)."""
     import torch
-    from repro_torch.comm.buckets import debucketize
     from repro_torch.models import decode_step, prefill
 
     table = pool.table_for(USERS[0])                # resident: no pool traffic
-    t_eff = cuda_ms(lambda: engine.delta_eff(pool, table))
-    eff = engine.delta_eff(pool, table)
-    t_cast = cuda_ms(lambda: debucketize(eff, store.layout))
-    params = debucketize(eff, store.layout)
-    del eff
+    t_apply = cuda_ms(lambda: engine._apply_delta(pool, table))
+    params = engine._apply_delta(pool, table)
     tok = torch.ones((1, prompt), dtype=torch.long, device=device)
     t_pre = cuda_ms(lambda: prefill(params, cfg, {"tokens": tok}, cache_len=max_len))
     _, cache = prefill(params, cfg, {"tokens": tok}, cache_len=max_len)
     t_dec = cuda_ms(lambda: decode_step(params, cfg, tok[:, :1], cache))
     busy = device_busy_ms(lambda: decode_step(params, cfg, tok[:, :1], cache), device)
-    log(phase, f"one slot's decode step: eff gather+add {t_eff:.2f} ms, cast to "
-               f"bf16 tree {t_cast:.2f} ms, decode_step {t_dec:.2f} ms "
-               f"({busy_note(busy, t_dec)}); prefill({prompt} tokens) {t_pre:.2f} ms "
-               f"(CUDA events, medians)")
+    log(phase, f"one slot's decode step: delta apply into the tree (D1) {t_apply:.2f} ms, "
+               f"decode_step {t_dec:.2f} ms ({busy_note(busy, t_dec)}); "
+               f"prefill({prompt} tokens) {t_pre:.2f} ms (CUDA events, medians)")
 
 
 def phase_serve(cfg, device):
@@ -820,6 +822,9 @@ def serve_users(cfg, device, phase, prompt, max_len):
     mem.mark("serve")
 
     require(stats.completed == len(reqs), f"completed {stats.completed} of {len(reqs)}")
+    calls = N_SLOTS * (stats.decode_steps + stats.prefills)
+    require(counts["delta_apply"] == (calls if on_card else 0),
+            f"D1 launched {counts['delta_apply']} times for {calls} delta-path slot calls")
     require(all(len(r.generated) == MAX_NEW and all(0 <= t < cfg.vocab_size
                                                     for t in r.generated) for r in reqs),
             "generated tokens out of range")
@@ -850,7 +855,7 @@ def serve_users(cfg, device, phase, prompt, max_len):
                      f"{k} {pr.checked[0]} (max_abs_err {pr.checked[2]})"
                      for k, pr in probes.items()))
     if on_card:
-        breakdown(cfg, store, pool, b.engine, device, phase, prompt, max_len)
+        breakdown(cfg, pool, b.engine, device, phase, prompt, max_len)
         mem.mark("breakdown")
         log(phase, mem.summary())
     log(phase, "kernels " + json.dumps(counts))
@@ -3591,6 +3596,80 @@ def phase_timing(rows, device, launches):
     return out
 
 
+def delta_inputs(device, arch=MAMBA_ARCH, seed=17):
+    """One dense user at ``arch``'s full layout, without the model's
+    weights: (layout, f32 base blocks, a pool holding a row for every block
+    and the zero row 0, the user's table (every block its own row, in a
+    random order), the engine's empty tree)."""
+    import torch
+    from repro_torch.comm.buckets import bucket_layout, empty_tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve.deltas import DEFAULT_BLOCK
+
+    layout = bucket_layout(init_params(0, get_config(arch), device="meta"), DEFAULT_BLOCK)
+    nb, bs = layout.n_buckets, layout.bucket_size
+    g = torch.Generator(device=device).manual_seed(seed)
+    base = torch.randn((nb, bs), generator=g, device=device)
+    pool = torch.randn((nb + 1, bs), generator=g, device=device).mul_(0.01)
+    pool[0] = 0.0
+    table = torch.randperm(nb, generator=g, device=device).add_(1).to(torch.int32)
+    return layout, base, pool, table, empty_tree(layout, device)
+
+
+def phase_delta_timing(device, launches):
+    """D1 at mamba2-2.7b's full layout for one dense user: bit for bit
+    against its plain version, then its time (CUDA events, medians) beside
+    its byte bound (base and the pool's row read once, each leaf written
+    once), the plain version's and each of the three passes it fuses.  A
+    call's time holds the wrapper's host checks, during which the device
+    waits; the device time per call (``queued_ms``) does not."""
+    import torch
+    from repro_torch.comm.buckets import debucketize, empty_tree
+    from repro_torch.kernels import delta_apply as da
+    from repro_torch.utils.tree import tree_leaves
+
+    free_cached(device)
+    layout, base, pool, table, tree = delta_inputs(device)
+    work = da.work_list(layout, tree)
+    plain_tree = empty_tree(layout, device)
+    before = da.delta_apply.launches
+    da.delta_apply(base, pool, table, tree, layout, work)
+    da.delta_apply_plain(base, pool, table, plain_tree, layout)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    for j, (a, b) in enumerate(zip(tree_leaves(tree), tree_leaves(plain_tree))):
+        bits = {2: torch.int16, 4: torch.int32}[a.element_size()]
+        require(a.dtype == b.dtype and torch.equal(a.view(bits), b.view(bits)),
+                f"D1 != its plain version at leaf {j} of the full layout")
+    ms = cuda_ms(lambda: da.delta_apply(base, pool, table, tree, layout, work), reps=21)
+    device_ms = queued_ms(lambda: da.delta_apply(base, pool, table, tree, layout, work))
+    plain_ms = cuda_ms(lambda: da.delta_apply_plain(base, pool, table, plain_tree, layout))
+    gather_ms = cuda_ms(lambda: torch.index_select(pool, 0, table))
+    eff = torch.index_select(pool, 0, table)
+    add_ms = cuda_ms(lambda: eff.add_(base))
+    cast_ms = cuda_ms(lambda: debucketize(eff, layout, out=plain_tree))
+    timed = da.delta_apply.launches - before
+    nbytes = sum(size * (8 + leaf.element_size())
+                 for size, leaf in zip(layout.sizes, tree_leaves(tree))) + 4 * layout.n_buckets
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    three = gather_ms + add_ms + cast_ms
+    kid, name, replaces, source = DELTA_INFO
+    log("timing", f"{kid} {name} ({MAMBA_ARCH}'s layout, d = {layout.d}, one dense user): "
+                  f"{ms:.3f} ms, bound {bound_ms:.3f} ms (bytes, {nbytes / 1e9:.2f} GB), "
+                  f"{100 * bound_ms / ms:.1f}% of bound; device {device_ms:.3f} ms a call "
+                  f"queued, {100 * bound_ms / device_ms:.1f}% of bound; plain {plain_ms:.3f} ms; "
+                  f"the three passes {three:.3f} ms (gather {gather_ms:.3f}, f32 add {add_ms:.3f}, "
+                  f"casts {cast_ms:.3f}); bit for bit the plain version; {launches} launches "
+                  f"on the serve and arch paths, {timed} here")
+    del eff, base, pool, tree, plain_tree, work
+    free_cached(device)
+    return {"id": kid, "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": 0.0, "ms": ms,
+            "device_ms": device_ms, "plain_ms": plain_ms, "three_pass_ms": three,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+
+
 def phase_mask_timing(d, device, launches):
     """B4 and B5 at the codec path's d: bitwise check, then times beside the
     plain versions and the byte bound (1 B per coordinate of mask, 1/8 B of
@@ -3808,7 +3887,7 @@ def main():
     phase_kernels(device)
     phase_lint(device)
     counts, rows, serve_payload_bytes = phase_serve(get_config(ARCH), device)
-    for kid, name, _, _ in KERNEL_INFO:
+    for kid, name, _, _ in KERNEL_INFO + (DELTA_INFO,):
         require(counts[name] > 0, f"{kid} {name} was not launched on the main path")
     phase_ref(device)
     codec_counts, d = phase_codec(get_config(ARCH), device, serve_payload_bytes)
@@ -3834,7 +3913,7 @@ def main():
     for kid, name in (("B2", "quant_pack_2d"), ("B3", "unpack_dequant_2d")):
         require(cohort_counts[name] > 0, f"{kid} {name} was not launched on the cohort path")
     arch_counts = phase_arch(device)
-    for kid, name, _, _ in KERNEL_INFO:
+    for kid, name, _, _ in KERNEL_INFO + (DELTA_INFO,):
         require(arch_counts[name] > 0, f"{kid} {name} was not launched on the arch path")
     archtrain_counts = phase_archtrain(device)
     for kid, name, _, _ in KERNEL_INFO:
@@ -3858,6 +3937,7 @@ def main():
     kernels = phase_timing(rows, device, launches)
     kernels += phase_mask_timing(d, device, launches)
     kernels += phase_prune_timing(layer, prune_counts, selecting, prune_errs, wide_counts)
+    kernels.append(phase_delta_timing(device, counts["delta_apply"] + arch_counts["delta_apply"]))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

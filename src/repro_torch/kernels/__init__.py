@@ -8,12 +8,13 @@
   B6 stream.stream_quant_pack_2d    B2 through a double-buffered ring
   B7 nm_prune.nm_prune_2d           N:M structured prune by score
   B8 wanda_score.wanda_prune_2d     fused wanda/ria/symwanda score + mask
+  D1 delta_apply.delta_apply        a slot's base + pool[table] into its tree
 
 Each wrapper counts its launches in a plain integer attribute
 (``wrapper.launches``), incremented only where the CUDA kernel launches;
 B8 also counts its selecting launches (``wanda_prune_2d.selecting``).
 """
-from repro_torch.kernels import bitpack, nm_prune, quant8, stream, wanda_score
+from repro_torch.kernels import bitpack, delta_apply, nm_prune, quant8, stream, wanda_score
 
 KERNELS = {
     "quant_dequant_2d": quant8.quant_dequant_2d,
@@ -24,6 +25,7 @@ KERNELS = {
     "stream_quant_pack_2d": stream.stream_quant_pack_2d,
     "nm_prune_2d": nm_prune.nm_prune_2d,
     "wanda_prune_2d": wanda_score.wanda_prune_2d,
+    "delta_apply": delta_apply.delta_apply,
 }
 
 

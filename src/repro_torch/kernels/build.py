@@ -1,7 +1,7 @@
 """Build the CUDA kernels with nvcc and bind them through ctypes.
 
-``csrc/quant.cu`` (B1-B3, B6), ``csrc/bitmask.cu`` (B4, B5) and
-``csrc/prune.cu`` (B7, B8) are compiled on first use into one shared
+``csrc/quant.cu`` (B1-B3, B6), ``csrc/bitmask.cu`` (B4, B5),
+``csrc/prune.cu`` (B7, B8) and ``csrc/delta.cu`` (D1) are compiled on first use into one shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds), cached under ``_build/`` by a hash of the sources and the flags:
 one nvcc per source, all started together, then one link.  Nothing here
@@ -28,7 +28,7 @@ from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = (CSRC / "quant.cu", CSRC / "bitmask.cu", CSRC / "prune.cu")
+SOURCES = (CSRC / "quant.cu", CSRC / "bitmask.cu", CSRC / "prune.cu", CSRC / "delta.cu")
 HEADERS = (CSRC / "resources.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + (
@@ -45,7 +45,8 @@ _WANDA = (_P,) * 8 + (_I64, _I64, _I32, _F, _F, _P, _P, _I32, _I64, _I64, _I64, 
 _RES = (_I32, _I64, ctypes.POINTER(_I64), ctypes.c_char_p, _I32)
 RESOURCE_ENTRIES = {"quant.cu": "repro_quant_resources",
                     "bitmask.cu": "repro_bitmask_resources",
-                    "prune.cu": "repro_prune_resources"}
+                    "prune.cu": "repro_prune_resources",
+                    "delta.cu": "repro_delta_resources"}
 # the report's fields, in resources.cuh's order
 RESOURCE_FIELDS = ("count", "threads", "dyn_smem", "cluster", "regs", "static_smem",
                    "local", "max_threads", "occupancy", "staged", "optin")
@@ -60,6 +61,7 @@ SIGNATURES = {
     "repro_nm_prune_2d_bf16": _NM,
     "repro_wanda_prune_2d_f32": _WANDA,
     "repro_wanda_prune_2d_bf16": _WANDA,
+    "repro_delta_apply": (_P, _P, _P, _P, _I64, _I32, _P),
     **{entry: _RES for entry in RESOURCE_ENTRIES.values()},
 }
 

@@ -98,6 +98,7 @@ KERNEL_SMEM_BUDGETS: Dict[str, Budget] = {
     "unpack_mask_2d": Budget(1024),
     "stream_quant_pack_2d": Budget(1 << 17),
     "nm_prune_2d": Budget(1024),
+    "delta_apply": Budget(1024),
     # the selecting launch stages a strip's keys up to the opt-in limit by
     # design (csrc/prune.cu, selecting_smem)
     "wanda_prune_2d": Budget(
@@ -111,7 +112,7 @@ KERNEL_SMEM_BUDGETS: Dict[str, Budget] = {
 class Launch(NamedTuple):
     """One kernel instance as its C entry launches it, from the source's
     constants."""
-    kid: str            # B1 ... B8
+    kid: str            # B1 ... B8, D1
     wrapper: str        # the kernel's Python wrapper (KERNEL_SMEM_BUDGETS key)
     source: str         # csrc file
     index: int          # the instance's index in the file's resource report
@@ -305,7 +306,8 @@ def launch_table(optin: int = SMEM_OPTIN_CEILING) -> List[Launch]:
     plus the strip's keys when they fit)."""
     from repro_torch.kernels import wanda_score as ws
 
-    quant, mask, prune = (cu_constants(s) for s in ("quant.cu", "bitmask.cu", "prune.cu"))
+    quant, mask, prune, delta = (cu_constants(s) for s in
+                                 ("quant.cu", "bitmask.cu", "prune.cu", "delta.cu"))
     rows = [
         Launch("B1", "quant_dequant_2d", "quant.cu", 0, "quant_kernel<false>",
                quant["kThreads"], 0, 1, False, 0),
@@ -323,6 +325,8 @@ def launch_table(optin: int = SMEM_OPTIN_CEILING) -> List[Launch]:
                prune["kThreads"], 0, 1, False, 0),
         Launch("B7", "nm_prune_2d", "prune.cu", 1, "nm_prune_kernel<bf16>",
                prune["kThreads"], 0, 1, False, 0),
+        Launch("D1", "delta_apply", "delta.cu", 0, "delta_apply_kernel",
+               delta["kThreads"], 0, 1, False, 0),
     ]
     head, per_row = prune["kSelectHeadSmem"], prune["kStagedRowSmem"]
     for t, tname in enumerate(("float", "bf16")):

@@ -3,23 +3,28 @@
 
 Slot ``b``'s effective parameters are
 
-    eff_b = base_blocks + pool_blocks[table_b]          # (n_blocks, bs) f32
-    params_b = debucketize(eff_b)                       # the user's tree
+    params_b = debucketize(base_blocks + pool_blocks[table_b])   # the user's tree
 
 The JAX package vmaps over slots inside one jit; the port runs a per-slot
-loop, so a full-width model holds one slot's f32 ``eff`` at a time.  The
-delta path (``prefill``/``decode``) and the materialized path
+loop.  The delta path (``prefill``/``decode``) and the materialized path
 (``prefill_materialized``/``decode_materialized``, fed fully materialized
-per-slot blocks) run the same ``_slot_*`` code on the same shapes, which is
-what lets serving a user's compressed delta be certified bitwise against
+per-slot f32 blocks) run the same ``_slot_*`` code on the same shapes, which
+is what lets serving a user's compressed delta be certified bitwise against
 serving their materialized params.
 
 The engine's cache is a list of per-slot model caches.
 
-The delta apply writes ONE parameter tree that the engine owns (bf16 and
-f32 leaves as the layout records them), in place: every slot call, prefill
-and decode, delta and materialized path, reads the same tree at the same
-addresses, and ``eff`` stays transient.
+Every slot call writes ONE parameter tree that the engine owns (bf16 and f32
+leaves as the layout records them), in place: prefill and decode, delta and
+materialized path read the same tree at the same addresses.  On the delta
+path one call writes it, ``kernels.delta_apply.delta_apply``: on a CUDA
+device kernel D1 reads base and the pool's rows once and stores each leaf in
+its dtype, with no f32 ``eff`` (and raises on a layout it does not take); on
+the CPU the plain version (a gather into a transient f32 ``eff``, the add, a
+cast per leaf).  Counters ``serve/delta/fused`` and ``serve/delta/plain``
+count the delta path's slot calls by which of the two ran.  The
+materialized path casts its given blocks with ``debucketize(..., out=)``:
+the independent side of the bitwise certification.
 
 Where every layer is a Mamba mixer and no layer routes experts, on a CUDA
 device, each slot's decode step is a CUDA graph (:class:`SlotGraph`),
@@ -30,7 +35,8 @@ Python position, MoE routing has data-dependent shapes).  Counters
 (the decode calls that ran eagerly) count the slot decode calls.
 
 Each slot call is traced (``obs.trace``): ``serve/slot/eff`` (the delta
-apply), ``serve/slot/debucketize`` and ``serve/slot/prefill`` or
+path's apply: D1's one launch on the card), ``serve/slot/debucketize`` (the
+materialized path's cast) and ``serve/slot/prefill`` or
 ``serve/slot/decode`` (the model's call, around a graph's capture or
 replay; no span opens inside a captured region).
 
@@ -46,6 +52,7 @@ import torch
 
 from repro_torch.comm.buckets import bucketize, debucketize, empty_tree
 from repro_torch.configs.base import MAMBA
+from repro_torch.kernels.delta_apply import delta_apply, work_list
 from repro_torch.models import decode_step, prefill as model_prefill
 from repro_torch.models.transformer import period_info
 from repro_torch.obs import trace as obs_trace
@@ -116,30 +123,45 @@ class DeltaServeEngine:
             from repro_torch.obs.metrics import registry as metrics
         self.metrics = metrics
         self.graphed = decode_graph_eligible(cfg, store.device)
-        # the one parameter tree, made at the first slot call: not held
-        # through the set-up's page-ins, whose transients it would add to
+        # the one parameter tree (and, on the card, D1's work list over it),
+        # made at the first slot call: not held through the set-up's
+        # page-ins, whose transients it would add to
         self._params = None
+        self._work = None
         self._graphs = {}           # (path, slot) -> SlotGraph
         self._pool = torch.cuda.graph_pool_handle() if self.graphed else None
 
     # -- one slot (shared by both paths) ------------------------------------
-    def _load_params(self, eff_b: torch.Tensor):
-        """``eff_b`` cast into the engine's parameter tree, in place."""
+    def _tree(self):
         if self._params is None:
             self._params = empty_tree(self.layout, self.store.device)
-        with obs_trace.span("serve/slot/debucketize"):
-            return debucketize(eff_b, self.layout, out=self._params)
+            if self.store.device.type == "cuda":
+                self._work = work_list(self.layout, self._params)
+        return self._params
 
-    def _slot_prefill(self, eff_b: torch.Tensor, tokens_b: torch.Tensor):
-        params = self._load_params(eff_b)
+    def _apply_delta(self, pool: BlockPool, table: torch.Tensor):
+        """Delta path: ``base + pool[table]`` into the engine's tree, in
+        place: D1 on the card, the plain version on the CPU."""
+        tree = self._tree()
+        self.metrics.counter("serve/delta/plain" if self._work is None
+                             else "serve/delta/fused").inc()
+        with obs_trace.span("serve/slot/eff"):
+            return delta_apply(self.store.base_blocks, pool.blocks, table, tree, self.layout,
+                               self._work)
+
+    def _load_params(self, eff_b: torch.Tensor):
+        """Materialized path: ``eff_b`` cast into the engine's tree, in place."""
+        tree = self._tree()
+        with obs_trace.span("serve/slot/debucketize"):
+            return debucketize(eff_b, self.layout, out=tree)
+
+    def _slot_prefill(self, params, tokens_b: torch.Tensor):
         with obs_trace.span("serve/slot/prefill"):
             logits, cache = model_prefill(params, self.cfg, {"tokens": tokens_b[None]},
                                           cache_len=self.max_len)
         return logits[0], cache
 
-    def _slot_decode(self, eff_b: torch.Tensor, tok_b: torch.Tensor, cache_b: dict,
-                     key: tuple):
-        params = self._load_params(eff_b)
+    def _slot_decode(self, params, tok_b: torch.Tensor, cache_b: dict, key: tuple):
         with obs_trace.span("serve/slot/decode"):
             logits, cache = self._decode(params, tok_b, cache_b, key)
         return logits[0], cache
@@ -159,14 +181,8 @@ class DeltaServeEngine:
             self.metrics.counter("serve/graph/replays").inc()
         return graph.step(tok_b, cache_b)
 
-    def delta_eff(self, pool: BlockPool, table: torch.Tensor) -> torch.Tensor:
-        """One slot's effective f32 blocks ``base + pool[table]``."""
-        with obs_trace.span("serve/slot/eff"):
-            # pool[table] + base == base + pool[table]: IEEE addition commutes
-            return torch.index_select(pool.blocks, 0, table).add_(self.store.base_blocks)
-
-    def _run(self, one, eff_of, n: int, *per_slot):
-        outs = [one(eff_of(b), *(a[b] for a in per_slot)) for b in range(n)]
+    def _run(self, one, params_of, n: int, *per_slot):
+        outs = [one(params_of(b), *(a[b] for a in per_slot)) for b in range(n)]
         return torch.stack([o[0] for o in outs]), [o[1] for o in outs]
 
     def _tables(self, tables) -> torch.Tensor:
@@ -176,7 +192,7 @@ class DeltaServeEngine:
     def prefill(self, pool: BlockPool, tables, tokens: torch.Tensor):
         """tables (B, n_blocks) int; tokens (B, L) -> (logits (B,1,V), caches)."""
         tables = self._tables(tables)
-        return self._run(self._slot_prefill, lambda b: self.delta_eff(pool, tables[b]),
+        return self._run(self._slot_prefill, lambda b: self._apply_delta(pool, tables[b]),
                          tokens.shape[0], tokens)
 
     def decode(self, pool: BlockPool, tables, tok: torch.Tensor, cache: List[dict]):
@@ -184,19 +200,19 @@ class DeltaServeEngine:
         until that slot's next decode call on this path."""
         tables = self._tables(tables)
         n = tok.shape[0]
-        return self._run(self._slot_decode, lambda b: self.delta_eff(pool, tables[b]),
+        return self._run(self._slot_decode, lambda b: self._apply_delta(pool, tables[b]),
                          n, tok, cache, [("delta", b) for b in range(n)])
 
     # -- materialized path (oracle / full-copy serving) ----------------------
     def prefill_materialized(self, eff_blocks: Sequence[torch.Tensor], tokens: torch.Tensor):
         """``eff_blocks[b]`` is slot b's (n_blocks, bs) f32 blocks."""
-        return self._run(self._slot_prefill, lambda b: eff_blocks[b],
+        return self._run(self._slot_prefill, lambda b: self._load_params(eff_blocks[b]),
                          tokens.shape[0], tokens)
 
     def decode_materialized(self, eff_blocks: Sequence[torch.Tensor], tok: torch.Tensor,
                             cache: List[dict]):
         n = tok.shape[0]
-        return self._run(self._slot_decode, lambda b: eff_blocks[b],
+        return self._run(self._slot_decode, lambda b: self._load_params(eff_blocks[b]),
                          n, tok, cache, [("materialized", b) for b in range(n)])
 
     def eff_blocks_for(self, params_list: List) -> torch.Tensor:

@@ -427,7 +427,7 @@ def test_kernel_resources_on_the_card(cuda_device):
     mirror, within budget, resident; the full contracts pass on the card."""
     from repro_torch.lint import contracts
     rows = contracts.kernel_resources(cuda_device)
-    assert {r["launch"].kid for r in rows} == {f"B{i}" for i in range(1, 9)}
+    assert {r["launch"].kid for r in rows} == {f"B{i}" for i in range(1, 9)} | {"D1"}
     assert all(r["occupancy"] > 0 and r["regs"] > 0 for r in rows)
     findings = contracts.run_contracts(cuda_device)
     assert findings == [], [f.format() for f in findings]

@@ -10,7 +10,10 @@ eager here, and the report's line for them.
 On the card (``cuda``, skipped without one): a reduced mamba2 served by a
 2-slot ``PersonalizedBatcher`` over 3 users gives the same greedy tokens
 with graphs as eagerly, logits within bf16 rounding, one capture a slot
-and a replay for every later slot decode call.
+and a replay for every later slot decode call; the delta apply runs as
+kernel D1 at every slot call (``serve/delta/fused``), its tree bit for bit
+``debucketize(eff)`` at fixed addresses, and the delta path's logits bit
+for bit the materialized path's.
 """
 from dataclasses import replace
 
@@ -72,9 +75,10 @@ def _serve(cfg, store, pool, n_slots: int, reqs):
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "h2o-danube-1.8b"])
 def test_engine_tree_equals_debucketize_bitwise(arch):
-    """Each slot call's delta apply writes the engine's one tree in place:
-    every leaf equals ``debucketize(eff)``'s in dtype and bits, and no leaf
-    moves between calls (a captured graph reads these addresses)."""
+    """Each slot call's delta apply, and the materialized path's cast of the
+    same ``eff``, write the engine's one tree in place: every leaf equals
+    ``debucketize(eff)``'s in dtype and bits, and no leaf moves between
+    calls (a captured graph reads these addresses)."""
     from repro_torch.serve import DeltaServeEngine
 
     cfg = _cfg(arch)
@@ -85,17 +89,17 @@ def test_engine_tree_equals_debucketize_bitwise(arch):
     assert "torch.bfloat16" in dtypes
     ptrs = None
     for table in [pool.acquire(u).table for u in (0, 1)] + [torch.zeros_like(pool.table_for(0))]:
-        eff = eng.delta_eff(pool, table)
-        tree = eng._load_params(eff)
-        assert tree is eng._params
+        eff = torch.index_select(pool.blocks, 0, table) + store.base_blocks
         want = tree_flatten(debucketize(eff, store.layout))[0]
-        got = tree_flatten(tree)[0]
-        assert len(got) == len(want)
-        for g, w in zip(got, want):
-            assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
-        now = [g.data_ptr() for g in got]
-        assert ptrs is None or now == ptrs
-        ptrs = now
+        for tree in (eng._apply_delta(pool, table), eng._load_params(eff)):
+            assert tree is eng._params
+            got = tree_flatten(tree)[0]
+            assert len(got) == len(want)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+            now = [g.data_ptr() for g in got]
+            assert ptrs is None or now == ptrs
+            ptrs = now
 
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "h2o-danube-1.8b"])
@@ -155,6 +159,22 @@ def test_on_the_cpu_every_slot_decode_call_counts_eager(arch):
         2 * b.stats.decode_steps
     assert metrics.get("serve/graph/captures") is None
     assert metrics.get("serve/graph/replays") is None
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "h2o-danube-1.8b"])
+def test_on_the_cpu_every_delta_apply_runs_the_plain_version(arch):
+    """``serve/delta/plain`` counts every slot call of the delta path,
+    prefill and decode, and ``serve/delta/fused`` none; D1 never launches."""
+    from repro_torch.kernels import delta_apply
+
+    cfg = _cfg(arch)
+    store, pool, metrics = _world(cfg, users=2)
+    before = delta_apply.delta_apply.launches
+    b, _, _ = _serve(cfg, store, pool, 2, [(0, [5, 6, 7], 3), (1, [8, 9], 5)])
+    calls = b.n_slots * (b.stats.decode_steps + b.stats.prefills)
+    assert metrics.get("serve/delta/plain").total == calls > 0
+    assert metrics.get("serve/delta/fused") is None
+    assert delta_apply.delta_apply.launches == before
 
 
 def test_report_prints_the_graph_counters(tmp_path):
@@ -225,3 +245,67 @@ def test_graphed_decode_gives_the_eager_tokens(cuda_device, monkeypatch):
     for g, e in zip(runs[True][1], runs[False][1]):
         scale = float(e.abs().max())
         torch.testing.assert_close(g, e, rtol=2.0 ** -7, atol=2.0 ** -7 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "h2o-danube-1.8b"])
+def test_on_the_card_the_delta_apply_is_d1_and_writes_debucketize_bitwise(cuda_device, arch):
+    """Every delta-path slot call, prefill and decode, runs D1 once
+    (``serve/delta/fused``, the wrapper's launches); the engine's tree after
+    an apply equals ``debucketize(eff)`` leaf by leaf in dtype and bits, at
+    the addresses it had."""
+    from repro_torch.kernels import delta_apply
+    from repro_torch.serve import DeltaServeEngine
+
+    cfg = _cfg(arch)
+    store, pool, metrics = _world(cfg, users=2, device=cuda_device)
+    eng = DeltaServeEngine(cfg, store, max_len=32, metrics=metrics)
+    ptrs = None
+    for table in [pool.acquire(u).table for u in (0, 1)] + [torch.zeros_like(pool.table_for(0))]:
+        tree = eng._apply_delta(pool, table)
+        eff = torch.index_select(pool.blocks, 0, table) + store.base_blocks
+        want = tree_flatten(debucketize(eff, store.layout))[0]
+        got = tree_flatten(tree)[0]
+        for g, w in zip(got, want):
+            bits = {2: torch.int16, 4: torch.int32}[w.element_size()]
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert torch.equal(g.view(bits), w.view(bits))
+        now = [g.data_ptr() for g in got]
+        assert ptrs is None or now == ptrs
+        ptrs = now
+    before = delta_apply.delta_apply.launches
+    fused0 = metrics.get("serve/delta/fused").total
+    b, _, _ = _serve(cfg, store, pool, 2, [(0, [5, 6, 7], 3), (1, [8, 9], 5),
+                                           (None, [4, 4, 4, 4], 2)])
+    calls = b.n_slots * (b.stats.decode_steps + b.stats.prefills)
+    assert metrics.get("serve/delta/fused").total - fused0 == calls > 0
+    assert delta_apply.delta_apply.launches - before == calls
+    assert metrics.get("serve/delta/plain") is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "h2o-danube-1.8b"])
+def test_delta_path_bitwise_equals_materialized_on_the_card(cuda_device, arch):
+    """Three slots (two users and the bare base): the delta path's logits
+    (D1 into the tree) equal the materialized path's (``debucketize`` of
+    each user's materialized blocks into the same tree), bit for bit, in
+    prefill and every decode step; mamba2's decode steps are graphs."""
+    from repro_torch.serve import DeltaServeEngine
+
+    cfg = _cfg(arch)
+    store, pool, metrics = _world(cfg, users=2, device=cuda_device)
+    eng = DeltaServeEngine(cfg, store, max_len=32, metrics=metrics)
+    tables = torch.stack([pool.acquire(u).table for u in range(2)] +
+                         [torch.zeros_like(pool.table_for(0))])
+    eff = eng.eff_blocks_for([store.personalized_params(0), store.personalized_params(1),
+                              debucketize(store.base_blocks, store.layout)])
+    toks = torch.arange(1, 34, device=cuda_device).reshape(3, 11)
+    logits, cache = eng.prefill(pool, tables, toks)
+    lm, cm = eng.prefill_materialized(eff, toks)
+    assert torch.equal(logits, lm)
+    for _ in range(4):
+        tok = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
+        logits, cache = eng.decode(pool, tables, tok, cache)
+        lm, cm = eng.decode_materialized(eff, tok, cm)
+        assert torch.equal(logits, lm)
+    assert metrics.get("serve/delta/fused").total == 3 * 5

@@ -138,9 +138,8 @@ def _serve(monkeypatch, trace_on: bool, wrap: bool):
     b = PersonalizedBatcher(cfg, store, pool, n_slots=2, max_len=32)
     if wrap:
         from perf_bench.harness import spans as bench_spans
-        monkeypatch.setattr(engine_mod, "debucketize", engine_mod.debucketize)
-        bench_spans.wrap(b.engine, "delta_eff", "bench/delta_eff")
-        bench_spans.wrap(engine_mod, "debucketize", "bench/debucketize")
+        monkeypatch.setattr(engine_mod, "delta_apply", engine_mod.delta_apply)
+        bench_spans.wrap(engine_mod, "delta_apply", "bench/delta_apply")
     rng = np.random.default_rng(0)
     for rid, n in enumerate((5, 8)):
         b.submit(Request(rid=rid, prompt=rng.integers(1, cfg.vocab_size, n), max_new=4,
@@ -159,7 +158,7 @@ def test_every_slot_call_is_traced_and_the_benchmark_wraps_still_see_them(monkey
     assert len(decodes) == b.stats.decode_steps > 0
     for d in decodes:
         # the engine runs every slot of the batch, live or not
-        for name in ("serve/slot/eff", "serve/slot/debucketize", "serve/slot/decode"):
+        for name in ("serve/slot/eff", "serve/slot/decode"):
             inner = _inside(d, spans, name)
             assert len(inner) == b.n_slots, name
     assert names.count("serve/token/decode") == len(decodes)
@@ -170,13 +169,14 @@ def test_every_slot_call_is_traced_and_the_benchmark_wraps_still_see_them(monkey
     for a in admits:
         assert len(_inside(a, spans, "serve/slot/prefill")) == b.n_slots
     calls = b.n_slots * (b.stats.decode_steps + b.stats.prefills)
-    assert names.count("serve/slot/eff") == names.count("serve/slot/debucketize") == calls
-    # the benchmark's own wraps time the same calls, each around the program's span
-    assert names.count("bench/delta_eff") == names.count("bench/debucketize") == calls
-    for w in (s for s in spans if s.name == "bench/delta_eff"):
-        assert len(_inside(w, spans, "serve/slot/eff")) == 1
-    for w in (s for s in spans if s.name == "bench/debucketize"):
-        assert not _inside(w, spans, "serve/slot/debucketize")
+    # the delta path's apply is one call inside ``serve/slot/eff``; only the
+    # materialized path opens ``serve/slot/debucketize``
+    assert names.count("serve/slot/eff") == calls
+    assert names.count("serve/slot/debucketize") == 0
+    # a benchmark wrap times the same calls, each inside the program's span
+    assert names.count("bench/delta_apply") == calls
+    for e in (s for s in spans if s.name == "serve/slot/eff"):
+        assert len(_inside(e, spans, "bench/delta_apply")) == 1
 
 
 def test_serving_records_nothing_with_tracing_off(monkeypatch):
