@@ -64,10 +64,8 @@ the script exits nonzero without printing a result:
            step 0 and be bitwise equal to each other and to the bf16
            anchor after steps 1 and 3.  The efbv run's params are saved
            with save_checkpoint to a temporary directory once its optimizer
-           state is freed.  Per run:
-           each step's loss and grad norm (finite), the median step split by
-           CUDA events into forward + backward, sync and clip + update, the
-           peak device memory and the RoundCost bytes per round
+           state is freed.  Per run: each step's loss and grad norm
+           (finite), the peak device memory and the RoundCost bytes per round
   prune    the chain's second half: SymWanda pruning of the train phase's
            checkpoint (full-width h2o-danube-1.8b, bf16, trained by the efbv
            run) through its CLI (launch/prune.py --ckpt): the loss ladder of
@@ -139,31 +137,26 @@ the script exits nonzero without printing a result:
            assignments past C in token order of an f32 top-k.  (d) the reduced f32 configs
            of the five and jamba's 8-layer period at reduced widths on the
            card and on the CPU: logits within 1e-4 of their max, tokens
-           equal.  Prefill / decode ms, the device's busy share of one
-           decode step (torch.profiler) and the peaks are printed
+           equal.  The peaks are printed
   archtrain  training of the other architectures at full width, each run
            through training.loop.train with tracing on (bf16, random weights
            from seed 0, seq 64, a global batch of 2, AdamW, the train phase's
            SyntheticLMDataset feed): (a) mamba2-2.7b whole, dense, 2 steps;
            (b) mamba2-2.7b at 32 of 64 layers, efbv + qsgd_kernel over 2
-           groups, 3 steps and a 4th under torch.profiler, where B1 must
-           launch G x chunks every step and B2 for the round report, and
+           groups, 4 steps, where B1 must launch G x chunks every step and B2 for the round report, and
            step 0's first B1 chunk and the report's B2 probe must equal their
            plain versions bit for bit; (c) seamless-m4t-large-v2 whole
            (24 + 24 layers), dense, 2 steps, each batch with 64 source frames
            made as launch.serve's side_inputs makes them; (d)
            llama4-scout-17b-a16e cut to one full-width 16-expert MoE layer,
            dense, 2 steps, the aux term printed.  Per run: losses and grad
-           norms (finite), the obs registry's series, the step split by the
-           step/* spans' CUDA events, the peak.  (e) The reduced f32 jamba,
-           dbrx and llama4, 3 dense steps on the card and on the CPU from the
-           same params and batches: losses within rtol 1e-4, every router
-           call's top-(K+1) margin > 1e-5.  (f) (b)'s profiled step: device
-           time by step/* range (profiler annotations on) and the busy share
-           of the unprofiled step.  (g) (b)'s trace through export_jsonl and
-           export_chrome_trace (every event "X" with its tid; load_jsonl
-           gives the spans back) and obs.report on it: exit 0, no ledger.
-           (h) A traced two-level hier round at 2^20 coordinates under
+           norms (finite), the obs registry's series, the peak.  (e) The
+           reduced f32 jamba, dbrx and llama4, 3 dense steps on the card and
+           on the CPU from the same params and batches: losses within rtol
+           1e-4, every router call's top-(K+1) margin > 1e-5.  (f) (b)'s
+           trace through export_jsonl and export_chrome_trace (every event
+           "X" with its tid; load_jsonl gives the spans back) and obs.report
+           on it: exit 0, no ledger.  (g) A traced two-level hier round at 2^20 coordinates under
            qsgd_kernel (encode B2, decode B3; each level in ambient(level=))
            audited by obs.report against round_ledger's bytes: bytes_match
            True and exit 0, exit 1 with one level's ledger bytes raised by 1
@@ -220,9 +213,8 @@ the script exits nonzero without printing a result:
            write its record with status ok.  (d) The flop anchor: (b)'s
            train step on the card under FlopCounterMode counts exactly the
            flops of the dry-run's fake trace of it, costing.corrected_costs
-           (1 and 2 layers, extrapolated) lies within 1% of that count, and
-           the achieved TFLOP/s of the warm step (CUDA events) against
-           989.4.  (e) python -m repro_torch.launch.perf records (subprocesses):
+           (1 and 2 layers, extrapolated) lies within 1% of that count.  (e)
+           python -m repro_torch.launch.perf records (subprocesses):
            danube train_4k at baseline and sync_efbv, llama4 train_4k at
            baseline, moe_a2a and moe_quant, mamba2 prefill_32k under
            ssd_heads; each record's roofline terms, memory, collective
@@ -241,8 +233,7 @@ the script exits nonzero without printing a result:
            alone, and one wanda call's peak allocation on each route;
            D1 at the full layout of mamba2-2.7b for one dense user (every
            block its own pool row), bit for bit against its plain version,
-           beside its byte bound, the plain version and each of the three
-           passes it fuses (gather, f32 add, the casts into the tree)
+           beside its byte bound and the plain version
 
 The last three lines are the kernels JSON, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -335,7 +326,7 @@ ARCH_RTOL = 1e-4                   # f32 logits card vs CPU, of the max (SSD sca
 PROBE_SLICE_ROWS = 1 << 20
 # archtrain phase: (label, config, layers kept (None: whole), SyncConfig
 # fields, steps, n_groups) at full width, seq and batch of the train phase;
-# the efbv run's last step is the profiled one.  Seamless's source frames per
+# the efbv run's trace is exported and read back.  Seamless's source frames per
 # sequence; the reduced MoE configs trained card vs CPU, their loss tolerance
 # and the router margin below which a top-k choice could flip; the audited
 # round's inter period
@@ -382,7 +373,6 @@ PERF_RECORDS = (("h2o-danube-1.8b", "train_4k", ""), ("h2o-danube-1.8b", "train_
                 ("llama4-scout-17b-a16e", "train_4k", "moe_quant"),
                 ("mamba2-2.7b", "prefill_32k", "ssd_heads"))
 FLOP_ANCHOR_RTOL = 0.01       # corrected_costs' flops vs the direct count
-H100_PEAK_FLOPS = 989.4e12    # dense bf16 (launch.mesh.PEAK_FLOPS_BF16)
 DRYRUN_CLI = ("h2o-danube-1.8b", "decode_32k")     # through launch.train --dry-run --multi-pod
 SERVE_DRYRUN_CLI = ("h2o-danube-1.8b", "long_500k")  # through launch.serve --dry-run, == (a)'s
 ANCHOR_RUNS = (("train", 4096), ("prefill", 8192))  # (kind, seq) at batch 1, remat full
@@ -601,45 +591,23 @@ def padded_mask(mask, n):
 
 
 # ---------------------------------------------------------------------------
-class TimedSteps:
-    """Batcher mixin: ``_timed(key, fn)`` appends fn()'s seconds on the
-    synchronized host clock to ``self.times[key]``."""
-
-    def _timed(self, key, fn):
-        import torch
-        on_card = self.device.type == "cuda"
-        if on_card:
-            torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        out = fn()
-        if on_card:
-            torch.cuda.synchronize(self.device)
-        self.times[key].append(time.perf_counter() - t0)
-        return out
-
-
 def checked_batcher_class():
     import torch
     from repro_torch.serve import PersonalizedBatcher
 
-    class CheckedBatcher(TimedSteps, PersonalizedBatcher):
+    class CheckedBatcher(PersonalizedBatcher):
         """Runs the materialized path beside every delta-path step and
-        requires bitwise-equal logits; times the delta path alone."""
+        requires bitwise-equal logits."""
 
         def __init__(self, *args, eff_by_uid, **kw):
             self.eff_by_uid = eff_by_uid
             self.slot_uid = [None] * kw["n_slots"]
             self.mcache = None
-            self.times = {"prefill": [], "decode": [], "page_in": []}
             self.checked = 0
             super().__init__(*args, **kw)
 
         def _on_admit(self, slot, req):
-            miss = req.user_id is not None and not self.pool.is_resident(req.user_id)
-            if miss:
-                self._timed("page_in", lambda: super(CheckedBatcher, self)._on_admit(slot, req))
-            else:
-                super()._on_admit(slot, req)
+            super()._on_admit(slot, req)
             self.slot_uid[slot] = req.user_id
 
         def _on_retire(self, slot, req):
@@ -647,6 +615,7 @@ def checked_batcher_class():
             self.slot_uid[slot] = None
 
         def _check(self, logits, lm, what):
+            what = f"{what} (step {self.checked})"
             require(bool(torch.isfinite(logits.float()).all()), f"{what}: non-finite logits")
             require(bits_equal(logits, lm), f"{what}: delta path != materialized path")
             self.checked += 1
@@ -655,15 +624,15 @@ def checked_batcher_class():
             return [self.eff_by_uid[u] for u in self.slot_uid]
 
         def _model_prefill(self, batch):
-            out = self._timed("prefill", lambda: super(CheckedBatcher, self)._model_prefill(batch))
+            out = super()._model_prefill(batch)
             lm, self.mcache = self.engine.prefill_materialized(self._eff(), batch["tokens"])
-            self._check(out[0], lm, f"prefill {len(self.times['prefill'])}")
+            self._check(out[0], lm, "prefill")
             return out
 
         def _model_decode(self, tok):
-            out = self._timed("decode", lambda: super(CheckedBatcher, self)._model_decode(tok))
+            out = super()._model_decode(tok)
             lm, self.mcache = self.engine.decode_materialized(self._eff(), tok, self.mcache)
-            self._check(out[0], lm, f"decode {len(self.times['decode'])}")
+            self._check(out[0], lm, "decode")
             return out
 
     return CheckedBatcher
@@ -694,26 +663,6 @@ class MemMarks:
         return "memory GiB (peak during / allocated after): " + ", ".join(
             f"{k} {p / 2**30:.2f}/{a / 2**30:.2f}" for k, p, a in self.marks) + \
             f"; overall peak {max(p for _, p, _ in self.marks) / 2**30:.2f}"
-
-
-def breakdown(cfg, pool, engine, device, phase, prompt, max_len):
-    """Where one slot's delta-path decode step goes: the delta apply into
-    the engine's tree (D1) and the model's decode_step (CUDA events,
-    medians)."""
-    import torch
-    from repro_torch.models import decode_step, prefill
-
-    table = pool.table_for(USERS[0])                # resident: no pool traffic
-    t_apply = cuda_ms(lambda: engine._apply_delta(pool, table))
-    params = engine._apply_delta(pool, table)
-    tok = torch.ones((1, prompt), dtype=torch.long, device=device)
-    t_pre = cuda_ms(lambda: prefill(params, cfg, {"tokens": tok}, cache_len=max_len))
-    _, cache = prefill(params, cfg, {"tokens": tok}, cache_len=max_len)
-    t_dec = cuda_ms(lambda: decode_step(params, cfg, tok[:, :1], cache))
-    busy = device_busy_ms(lambda: decode_step(params, cfg, tok[:, :1], cache), device)
-    log(phase, f"one slot's decode step: delta apply into the tree (D1) {t_apply:.2f} ms, "
-               f"decode_step {t_dec:.2f} ms ({busy_note(busy, t_dec)}); "
-               f"prefill({prompt} tokens) {t_pre:.2f} ms (CUDA events, medians)")
 
 
 def phase_serve(cfg, device):
@@ -838,16 +787,9 @@ def serve_users(cfg, device, phase, prompt, max_len):
                 f"{name}'s first call on this path was not the ({rows}, {quant8.QBLOCK}) "
                 f"delta: {pr.checked}")
         require(pr.checked[1], f"{name} on the {cfg.name} delta != plain: {pr.checked}")
-    pre, dec = b.times["prefill"], b.times["decode"]
-    busy = sum(pre) + sum(dec)
-    ms = lambda xs: [round(1e3 * t, 2) for t in xs]
     log(phase, f"{len(reqs)} requests ({stats.tokens_out} tokens) over {N_SLOTS} slots "
                  f"in {wall:.2f} s with checks; {b.checked} steps bitwise equal to "
                  f"the materialized path (prefill + every decode step)")
-    log(phase, f"delta path (host clock, synchronized): prefill ms {ms(pre)}; decode "
-                 f"median {1e3 * statistics.median(dec):.2f} ms/step (n={len(dec)}, "
-                 f"first {1e3 * dec[0]:.2f}); {stats.tokens_out / busy:.2f} tokens/s over "
-                 f"prefill+decode time; page-in ms {ms(b.times['page_in'])}")
     log(phase, f"serve/page_in {page_in} bytes == payload bytes of {pool.misses} misses; "
                  f"pool {pool.stats()}")
     log(phase, "on this path's own inputs, held bit for bit to the plain versions "
@@ -855,8 +797,6 @@ def serve_users(cfg, device, phase, prompt, max_len):
                      f"{k} {pr.checked[0]} (max_abs_err {pr.checked[2]})"
                      for k, pr in probes.items()))
     if on_card:
-        breakdown(cfg, pool, b.engine, device, phase, prompt, max_len)
-        mem.mark("breakdown")
         log(phase, mem.summary())
     log(phase, "kernels " + json.dumps(counts))
     payload_bytes = store.nbytes(USERS[0])
@@ -1234,57 +1174,6 @@ def phase_codec(cfg, device, serve_payload_bytes):
 
 
 # ---------------------------------------------------------------------------
-class StepSpans:
-    """The train step's phases from its ``obs.trace`` spans (``step/grad``,
-    ``step/sync``, ``step/apply``), timed on the card by the CUDA events the
-    tracer records at each span's ends (by the host clock off the card).
-    Inside ``with`` (tracing on, the tracer emptied first; ``annotations``
-    also opens a torch.profiler range per span), ``take()`` after each step
-    keeps that step's spans; ``split()`` gives per-step ms by phase.  The
-    tracer keeps the whole run until the next ``with`` (or another run)
-    empties it."""
-    PHASES = {"step/grad": "grad", "step/sync": "sync", "step/apply": "apply"}
-
-    def __init__(self, device, annotations=False):
-        from repro_torch.obs import trace
-        self.trace, self.on_card, self.steps = trace, device.type == "cuda", []
-        self.annotations, self._seen = annotations, 0
-
-    def __enter__(self):
-        self.was = self.trace.enabled()
-        self.trace.get_tracer().reset()
-        self.trace.enable(device_events=self.on_card, profiler_annotations=self.annotations)
-        return self
-
-    def __exit__(self, *exc):
-        self.trace.enable(profiler_annotations=False)
-        self.trace.disable()
-        if self.was:
-            self.trace.enable()
-        return False
-
-    def take(self):
-        tracer = self.trace.get_tracer()
-        require(tracer.n_evicted == 0, f"the tracer evicted {tracer.n_evicted} spans")
-        spans = tracer.spans()
-        self.steps.append([sp for sp in spans[self._seen:] if sp.name in self.PHASES])
-        self._seen = len(spans)
-
-    def split(self):
-        import torch
-        if self.on_card:
-            torch.cuda.synchronize()
-        out = []
-        for spans in self.steps:
-            row = {"grad": 0.0, "sync": 0.0, "apply": 0.0}
-            for sp in spans:
-                row[self.PHASES[sp.name]] += (self.trace.device_ms(sp) if self.on_card
-                                              else sp.dur_us / 1e3)
-            row["total"] = sum(row.values())
-            out.append(row)
-        return out
-
-
 class KernelProbe:
     """Stands in for a kernel module inside the module that calls it, for one
     run: the run's first call of ``fn`` (B1: a full chunk of step 0's delta;
@@ -1325,7 +1214,6 @@ class KernelProbe:
         self.checks.append(check)
         if self.checked is None:
             self.checked = (check[0],) + check[2:]
-            self.inputs = (ins, kw)                     # for timing after the run
         del want
         return out
 
@@ -1352,13 +1240,6 @@ class KernelProbe:
         self.checks.append((self.checked[0], args[0].device.type, equal, err))
         return out
 
-    def time_ms(self):
-        """The kernel's time on the checked input (CUDA events, median of 5);
-        the caller resets the launch counts after it."""
-        ins, kw = self.inputs
-        kernel = getattr(self._mod, self._fn)
-        return cuda_ms(lambda: kernel(*ins, **kw))
-
 
 def check_replicas(step, state, want_equal):
     """hier: after a sync step the replicas equal each other and the bf16
@@ -1375,47 +1256,14 @@ def check_replicas(step, state, want_equal):
         require(not all(same), f"hier step {step}: replicas equal before any sync")
 
 
-def profile_by_phase(prof, ranges):
-    """Device ms of a torch.profiler run: the sum of the card's activity
-    (kernels, copies, sets; the device rows of the annotation ``ranges``
-    and of ``train#<step>`` left out), and that activity by ``step/*``
-    phase, each kernel in the phase whose host range holds the CPU event it
-    is linked to (its launch; the autograd thread's launches fall inside
-    the step/grad range, which the main thread holds while it waits).
-    -> (total ms, {phase: ms}, ms linked to any CPU event)."""
-    from torch.autograd import DeviceType
-    events = prof.events()
-    names = set(StepSpans.PHASES)
-    spans = [(e.time_range.start, e.time_range.end, StepSpans.PHASES[e.name])
-             for e in events if e.device_type == DeviceType.CPU and e.name in names]
-    total = sum(e.time_range.elapsed_us() for e in events
-                if e.device_type == DeviceType.CUDA and e.name not in ranges
-                and not e.name.startswith("train#"))
-    by, linked = {p: 0.0 for p in StepSpans.PHASES.values()}, 0.0
-    for e in events:
-        if e.device_type != DeviceType.CPU or not e.kernels:
-            continue
-        us = sum(k.duration for k in e.kernels)
-        linked += us
-        for t0, t1, phase in spans:
-            if t0 <= e.time_range.start <= t1:
-                by[phase] += us
-                break
-    return total / 1e3, {p: v / 1e3 for p, v in by.items()}, linked / 1e3
-
-
-def train_run(phase, label, cfg, tc, device, n_groups, n_pods, batches, on_step=None,
-              profile_last=False):
+def train_run(phase, label, cfg, tc, device, n_groups, n_pods, batches, on_step=None):
     """One traced run of ``training.loop.train`` for ``tc.total_steps``
     steps: finite losses and grad norms, the obs registry's series (each
     step's fetched metrics; the round cost once for a compressed sync), the
-    step split by the ``step/*`` spans' CUDA events, the peak and the launch
-    counts.  Under efbv + ``qsgd_kernel``, B1 must launch G x chunks on every
-    step, B2 for the round report, and the run's first B1 call (a full chunk
-    of step 0's delta) and first B2 call (the report's probe) must equal
-    their plain versions bit for bit.  ``profile_last``: profiler
-    annotations on, and the last step runs under torch.profiler (its device
-    time by phase in ``run["profile"]``; it stays out of the median).  The
+    peak and the launch counts.  Under efbv + ``qsgd_kernel``, B1 must
+    launch G x chunks on every step, B2 for the round report, and the run's
+    first B1 call (a full chunk of step 0's delta) and first B2 call (the
+    report's probe) must equal their plain versions bit for bit.  The
     tracer still holds the run's spans on return.  Returns a dict (the
     final ``state`` included)."""
     import math
@@ -1424,38 +1272,19 @@ def train_run(phase, label, cfg, tc, device, n_groups, n_pods, batches, on_step=
     from repro_torch.core import distributed as dist
     from repro_torch.kernels import bitpack, ops, quant8, ref
     from repro_torch.kernels.ops import tile_rows
-    from repro_torch.obs import registry
+    from repro_torch.obs import registry, trace
     from repro_torch.training import loop
     from repro_torch.utils.tree import tree_leaves
 
     on_card = device.type == "cuda"
     steps = tc.total_steps
-    spans = StepSpans(device, annotations=profile_last)
-    sync = (lambda: torch.cuda.synchronize(device)) if on_card else (lambda: None)
-    probe = b2 = prof = None
+    probe = b2 = None
     if tc.sync.mode == "efbv" and tc.sync.compressor == "qsgd_kernel":
         probe = KernelProbe(quant8, "quant_dequant_2d", ref.quant_dequant_ref)
         b2 = KernelProbe(bitpack, "quant_pack_2d", ref.quant_pack_ref)
-    if profile_last:
-        from torch.profiler import ProfilerActivity, profile
-        prof = profile(activities=[ProfilerActivity.CPU]
-                       + ([ProfilerActivity.CUDA] if on_card else []))
     run = {"b1_seen": [], "d": None}    # B1 launches counted after each step
 
-    def feed():
-        for i, batch in enumerate(batches):
-            if prof is not None and i == steps - 1:
-                sync()
-                prof.start()
-            yield batch
-
     def step_hook(step, state, metrics):
-        if prof is not None and step == steps - 1:
-            sync()
-            prof.stop()
-            run["profile"] = profile_by_phase(
-                prof, {sp.name for sp in spans.trace.get_tracer().spans()})
-        spans.take()
         run["b1_seen"].append(kernels.launch_counts()["quant_dequant_2d"])
         if run["d"] is None:
             run["d"] = sum(int(p.numel()) for p in tree_leaves(state.params))
@@ -1469,20 +1298,28 @@ def train_run(phase, label, cfg, tc, device, n_groups, n_pods, batches, on_step=
         dist.quant8, ops._bp = probe, b2
     kernels.reset_launch_counts()
     registry.reset()
+    was_tracing = trace.enabled()
+    tracer = trace.get_tracer()
+    tracer.reset()
+    trace.enable()
     try:
         t0 = time.perf_counter()
-        with spans:
-            state, history = loop.train(
-                cfg, tc, feed(), n_groups=n_groups, n_pods=n_pods, steps=steps,
-                device=device, log=lambda m: log(phase, f"{label}: {m}"), on_step=step_hook)
-            sync()
-            run["s"] = time.perf_counter() - t0
+        state, history = loop.train(
+            cfg, tc, batches, n_groups=n_groups, n_pods=n_pods, steps=steps,
+            device=device, log=lambda m: log(phase, f"{label}: {m}"), on_step=step_hook)
+        if on_card:
+            torch.cuda.synchronize(device)
+        run["s"] = time.perf_counter() - t0
     finally:
+        trace.disable()
+        if was_tracing:
+            trace.enable()
         if probe is not None:
             dist.quant8, ops._bp = quant8, bitpack
+    require(tracer.n_evicted == 0, f"{label}: the tracer evicted {tracer.n_evicted} spans")
     counts = kernels.launch_counts()
     kernels.reset_launch_counts()
-    run.update(state=state, history=history, counts=counts, on_card=on_card,
+    run.update(state=state, history=history, counts=counts,
                peak_gib=torch.cuda.max_memory_allocated(device) / 2**30 if on_card else 0.0,
                losses=[h["loss"] for h in history], gnorms=[h["grad_norm"] for h in history],
                ces=[h["ce"] for h in history])
@@ -1492,9 +1329,6 @@ def train_run(phase, label, cfg, tc, device, n_groups, n_pods, batches, on_step=
             and (tc.sync.mode == "dense") == (registry.get("comm/model/round_time_s") is None),
             f"{label}: registry series {registry.names()}")
     registry.reset()
-    run["split"] = split = spans.split()
-    timed_steps = split[:-1] if prof is not None else split
-    run["med"] = {k: statistics.median(r[k] for r in timed_steps) for k in split[0]}
     if probe is None:
         return run
     chunks = -(-tile_rows(run["d"]) // dist.CHUNK_ROWS)
@@ -1518,31 +1352,19 @@ def train_run(phase, label, cfg, tc, device, n_groups, n_pods, batches, on_step=
             f"{label}: the round report's first B2 call was not its "
             f"({probe_rows}, {quant8.QBLOCK}) probe: {b2.checked}")
     require(b2.checked[1], f"{label}: B2 on the round report's probe != plain: {b2.checked}")
-    chunk_ms = probe.time_ms() if on_card else float("nan")   # not counted
-    kernels.reset_launch_counts()
-    rows = probe.checked[0][0]
-    run["b1_chunk"] = {"rows": rows, "ms": chunk_ms,
-                       "bound_ms": 1e3 * 12 * rows * 512 / HBM_BYTES_PER_S}
     log(phase, f"{label}: B1 {counts['quant_dequant_2d']} launches (= {n_groups} groups x "
                f"{chunks} chunks x {steps} steps; per step {b1_steps}), B2 "
                f"{counts['quant_pack_2d']} (round report; its probe {b2.checked[0]} == "
                f"plain bit for bit, max_abs_err {b2.checked[2]}); "
                f"step 0's first B1 chunk {probe.checked[0]} == plain bit for bit "
-               f"(max_abs_err {probe.checked[2]}); B1 on that chunk {chunk_ms:.4f} ms "
-               f"(bound {run['b1_chunk']['bound_ms']:.4f} ms), x {chunks * n_groups} "
-               f"a step = {chunk_ms * chunks * n_groups:.2f} ms")
+               f"(max_abs_err {probe.checked[2]})")
     return run
 
 
 def run_summary(run):
-    """The run's losses, grad norms, median step split, peak and seconds."""
-    med, split = run["med"], run["split"]
+    """The run's losses, grad norms, peak and seconds."""
     return (f"losses {[round(v, 4) for v in run['losses']]}, grad norms "
-            f"{[round(v, 4) for v in run['gnorms']]}; median step {med['total']:.2f} ms = "
-            f"forward+backward {med['grad']:.2f} + sync {med['sync']:.2f} + clip+update "
-            f"{med['apply']:.2f} ({'CUDA events' if run['on_card'] else 'host clock'}); per "
-            f"step total {[round(r['total'], 2) for r in split]} ms, sync "
-            f"{[round(r['sync'], 2) for r in split]} ms; peak {run['peak_gib']:.2f} GiB; "
+            f"{[round(v, 4) for v in run['gnorms']]}; peak {run['peak_gib']:.2f} GiB; "
             f"run {run['s']:.2f} s; kernels "
             f"{json.dumps({k: v for k, v in run['counts'].items() if v})}")
 
@@ -1575,8 +1397,6 @@ def phase_train(cfg, device, ckpt):
                         lm_batch_iterator(ds, TRAIN_BATCH, TRAIN_SEQ, seed=1), on_step=on_step)
         for k, v in run["counts"].items():
             path[k] += v
-        if "b1_chunk" in run:
-            summary["b1_chunk"] = run["b1_chunk"]
         cost = dist.round_comm(tc.sync, cfg.param_count(), device=device)   # not counted
         kernels.reset_launch_counts()
         state = run.pop("state")
@@ -1598,8 +1418,7 @@ def phase_train(cfg, device, ckpt):
         if label.startswith("hier"):
             log("train", f"{label}: replicas differ after step 0, bitwise equal to each other "
                          f"and to the bf16 anchor after steps 1 and 3")
-        summary[label] = {"step_ms": run["med"], "peak_gib": run["peak_gib"],
-                          "bytes_per_round": cost.total_bytes}
+        summary[label] = {"peak_gib": run["peak_gib"], "bytes_per_round": cost.total_bytes}
         log("train", f"{label}: {run_summary(run)}; RoundCost {cost.total_bytes:.0f} B/round "
                      f"(inter {cost.inter_bytes:.0f}, intra {cost.intra_bytes:.0f})")
         del state, run
@@ -2051,52 +1870,24 @@ def phase_cohort(device, d, payload_bytes, pop_size=COHORT_POP, cohort=COHORT_SI
 
 
 # ---------------------------------------------------------------------------
-def timed_batcher_class():
+def finite_batcher_class():
     import torch
     from repro_torch.training.serving import ContinuousBatcher
 
-    class TimedBatcher(TimedSteps, ContinuousBatcher):
-        """Times each prefill and decode step and requires finite logits."""
-
-        def __init__(self, *args, **kw):
-            self.times = {"prefill": [], "decode": []}
-            super().__init__(*args, **kw)
+    class FiniteBatcher(ContinuousBatcher):
+        """Requires finite logits of each prefill and decode step."""
 
         def _finite(self, key, out):
             require(bool(torch.isfinite(out[0].float()).all()), f"{key}: non-finite logits")
             return out
 
         def _model_prefill(self, batch):
-            return self._finite("prefill", self._timed(
-                "prefill", lambda: super(TimedBatcher, self)._model_prefill(batch)))
+            return self._finite("prefill", super()._model_prefill(batch))
 
         def _model_decode(self, tok):
-            return self._finite("decode", self._timed(
-                "decode", lambda: super(TimedBatcher, self)._model_decode(tok)))
+            return self._finite("decode", super()._model_decode(tok))
 
-    return TimedBatcher
-
-
-def device_busy_ms(fn, device):
-    """Kernel time on the card of one call of ``fn()``: the durations of the
-    CUDA activity torch.profiler records, summed (0.0 if it records none)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize(device)
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3
-
-
-def busy_note(busy_ms, wall_ms):
-    """The device's busy and idle share of an unprofiled ``wall_ms`` step."""
-    if busy_ms <= 0:
-        return "device busy: not measured (no CUDA activity traced)"
-    return (f"device busy {busy_ms:.2f} ms of it by torch.profiler, idle "
-            f"{100 * (1 - busy_ms / wall_ms):.1f}%")
+    return FiniteBatcher
 
 
 def free_cached(device):
@@ -2107,29 +1898,21 @@ def free_cached(device):
         torch.cuda.empty_cache()
 
 
-def decode_run(cfg, params, batch, n, device):
+def decode_run(cfg, params, batch, n):
     """Prefill ``batch``, then ``n`` greedy decode steps -> (logits of each
-    step (prefill first), greedy tokens (B, n + 1), prefill s, decode s a
-    step, the cache), each step synchronized."""
+    step (prefill first), greedy tokens (B, n + 1), the cache)."""
     import torch
     from repro_torch.models import decode_step, prefill
-    sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
-    sync()
-    t0 = time.perf_counter()
     logits, cache = prefill(params, cfg, batch, cache_len=batch["tokens"].shape[1] + n + 1)
-    sync()
-    t_pre, steps, outs = time.perf_counter() - t0, [], [logits]
+    outs = [logits]
     tok = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
     toks = [tok]
     for _ in range(n):
-        t0 = time.perf_counter()
         logits, cache = decode_step(params, cfg, tok, cache)
-        sync()
-        steps.append(time.perf_counter() - t0)
         outs.append(logits)
         tok = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
         toks.append(tok)
-    return outs, torch.cat(toks, 1), t_pre, steps, cache
+    return outs, torch.cat(toks, 1), cache
 
 
 def check_moe_layer(cfg, moe_params, h):
@@ -2197,7 +1980,7 @@ def arch_moe(device, arch, n_layers):
     from dataclasses import replace
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import side_inputs
-    from repro_torch.models import decode_step, init_params, moe as moe_lib, period_info
+    from repro_torch.models import init_params, moe as moe_lib, period_info
     from repro_torch.utils.tree import tree_leaves, tree_map
 
     full = get_config(arch)
@@ -2223,13 +2006,10 @@ def arch_moe(device, arch, n_layers):
 
     moe_lib.moe_apply = recording
     try:
-        outs, toks, t_pre, steps, cache = decode_run(cfg, params, batch, MOE_DECODE, device)
+        outs, toks, _ = decode_run(cfg, params, batch, MOE_DECODE)
     finally:
         moe_lib.moe_apply = apply
     mem.mark("prefill + decode")
-    step_ms = 1e3 * statistics.median(steps)
-    busy = device_busy_ms(lambda: decode_step(params, cfg, toks[:, -1:], cache), device) \
-        if device.type == "cuda" else 0.0
     require(all(bool(torch.isfinite(o.float()).all()) for o in outs), f"{arch}: non-finite")
     require(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size, f"{arch}: token range")
     j = period_info(cfg)[3].index(True)             # the first MoE layer
@@ -2237,9 +2017,8 @@ def arch_moe(device, arch, n_layers):
     err, T, C, dropped = check_moe_layer(cfg, moe_params, seen["h"])
     log("arch", f"{arch}: {n_layers} of {full.num_layers} layers at full width "
                 f"({n_params} params, {cfg.dtype}, init {init_s:.2f} s); prefill 2 x "
-                f"{MOE_PROMPT} tokens{' (256 vision)' if cfg.vision_tokens else ''} "
-                f"{1e3 * t_pre:.2f} ms, decode median {step_ms:.2f} ms/step (n={len(steps)}, "
-                f"first {1e3 * steps[0]:.2f}; {busy_note(busy, step_ms)}); {mem.summary()}")
+                f"{MOE_PROMPT} tokens{' (256 vision)' if cfg.vision_tokens else ''} and "
+                f"{MOE_DECODE} decode steps; {mem.summary()}")
     log("arch", f"{arch}: layer {j}'s MoE on its prefill inputs (T={T}, top-"
                 f"{cfg.moe.top_k} of {cfg.moe.num_experts}"
                 f"{' + shared' if cfg.moe.shared_expert else ''}): moe_ffn(no_drop) vs the "
@@ -2247,7 +2026,7 @@ def arch_moe(device, arch, n_layers):
                 f"{cfg.moe.capacity_factor}: C={C}, {dropped} of {T * cfg.moe.top_k} "
                 f"assignments dropped, the same set as each expert's assignments past C in "
                 f"token order of an f32 top-k")
-    del params, outs, seen, cache, moe_params
+    del params, outs, seen, moe_params
     free_cached(device)
 
 
@@ -2259,7 +2038,7 @@ def arch_seamless(device):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate, side_inputs
-    from repro_torch.models import decode_step, init_params
+    from repro_torch.models import init_params
     from repro_torch.training.serving import Request
     from repro_torch.utils.tree import tree_leaves
 
@@ -2268,8 +2047,8 @@ def arch_seamless(device):
     marks = MemMarks(device)
     params = init_params(0, cfg, device=device)
     n_params = sum(int(a.numel()) for a in tree_leaves(params))
-    b = timed_batcher_class()(cfg, params, n_slots=N_SLOTS,
-                              max_len=SEAMLESS_PROMPT + 2 * MAX_NEW + 2)
+    b = finite_batcher_class()(cfg, params, n_slots=N_SLOTS,
+                               max_len=SEAMLESS_PROMPT + 2 * MAX_NEW + 2)
     rng = np.random.default_rng(6)
     reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, SEAMLESS_PROMPT),
                     max_new=MAX_NEW) for i in range(4)]
@@ -2291,16 +2070,10 @@ def arch_seamless(device):
     require(out.shape == (2, MAX_NEW) and 0 <= out.min() and out.max() < cfg.vocab_size,
             "seamless: generate tokens")
     marks.mark("batcher + generate")
-    pre, dec = b.times["prefill"], b.times["decode"]
-    step_ms = 1e3 * statistics.median(dec)
-    tok = torch.ones((N_SLOTS, 1), dtype=torch.long, device=device)
-    busy = device_busy_ms(lambda: decode_step(params, cfg, tok, b.cache), device) \
-        if device.type == "cuda" else 0.0
     log("arch", f"{SEAMLESS_ARCH}: {cfg.enc_layers} encoder + {cfg.num_layers} decoder "
                 f"layers at full size ({n_params} params, {cfg.dtype}); ContinuousBatcher "
-                f"{len(reqs)} requests over {N_SLOTS} slots: prefill ms "
-                f"{[round(1e3 * t, 2) for t in pre]}, decode median "
-                f"{step_ms:.2f} ms/step (n={len(dec)}; {busy_note(busy, step_ms)}); cache "
+                f"{len(reqs)} requests over {N_SLOTS} slots ({stats.prefills} prefills, "
+                f"{stats.decode_steps} decode steps, logits finite); cache "
                 f"enc_memory {tuple(mem.shape)}; generate(src_embeds "
                 f"{tuple(side['src_embeds'].shape)}) {MAX_NEW} tokens in {gen_s:.2f} s; "
                 f"{marks.summary()}")
@@ -2337,9 +2110,9 @@ def arch_reduced(device):
         if cfg.enc_layers:
             batch["src_embeds"] = torch.as_tensor(
                 0.02 * rng.normal(size=(2, 12, cfg.enc_d_model)), dtype=torch.float32)
-        runs = [decode_run(cfg, p, {k: v.to(dev) for k, v in batch.items()}, 4, dev)
+        runs = [decode_run(cfg, p, {k: v.to(dev) for k, v in batch.items()}, 4)
                 for p, dev in ((p_dev, device), (p_cpu, cpu))]
-        (card, ctoks, *_), (host, htoks, *_) = runs
+        (card, ctoks, _), (host, htoks, _) = runs
         err = max(float((a.cpu() - b).abs().max() / b.abs().max()) for a, b in zip(card, host))
         require(err <= ARCH_RTOL, f"reduced {name}: logits card vs CPU {err:.3g} > {ARCH_RTOL}")
         require(torch.equal(ctoks.cpu(), htoks), f"reduced {name}: greedy tokens card != CPU")
@@ -2487,7 +2260,7 @@ def traced_round(out_dir, n_params, compressor, device, sync_period=AUDIT_PERIOD
 
 
 def export_trace(phase, label, run, out_dir, tc):
-    """(g) The run's trace through both exporters: every Chrome event an
+    """(f) The run's trace through both exporters: every Chrome event an
     "X" event on a span's thread, and load_jsonl giving back the spans.
     Returns the JSONL's path."""
     from repro_torch.obs import trace
@@ -2516,7 +2289,7 @@ def export_trace(phase, label, run, out_dir, tc):
 
 
 def audit_round(phase, device, out_dir):
-    """(h) The byte audit: traced_round at PROBE_CAP coordinates under
+    """(g) The byte audit: traced_round at PROBE_CAP coordinates under
     qsgd_kernel (encode B2, decode B3; the inter payload's encode and
     decode held bit for bit to their plain versions on the same inputs),
     read by obs.report with the ledger: bytes_match True and exit 0; with
@@ -2542,8 +2315,8 @@ def audit_round(phase, device, out_dir):
     shape = (PROBE_CAP // QBLOCK, QBLOCK)
     for name, probe in (("B2", b2), ("B3", b3)):
         require(probe.checked is not None and probe.checked[0] == shape and probe.checked[1],
-                f"(h) the inter payload's {name} != its plain version: {probe.checked}")
-    log(phase, f"(h) traced hier round ({PROBE_CAP} coordinates, qsgd_kernel inter every "
+                f"(g) the inter payload's {name} != its plain version: {probe.checked}")
+    log(phase, f"(g) traced hier round ({PROBE_CAP} coordinates, qsgd_kernel inter every "
                f"{AUDIT_PERIOD}, one root period): B2 {counts['quant_pack_2d']} launches (the "
                f"inter encode, then the ledger's and the round cost's probes), B3 "
                f"{counts['unpack_dequant_2d']} (the inter decode); the inter encode's B2 and "
@@ -2552,9 +2325,9 @@ def audit_round(phase, device, out_dir):
     argv = [trace_path, "--metrics", metrics_path] + ([] if on_card else ["--device", str(device)])
     rc, res = run_report(phase, argv)
     require(rc == 0 and res["bytes_match"] is True and res["trace_bytes"] == res["ledger_bytes"],
-            f"(h) report exit {rc}, bytes_match {res['bytes_match']}: trace "
+            f"(g) report exit {rc}, bytes_match {res['bytes_match']}: trace "
             f"{res['trace_bytes']} ledger {res['ledger_bytes']}")
-    log(phase, f"(h) bytes by level {res['trace_bytes']} == the ledger's, exit 0; with the "
+    log(phase, f"(g) bytes by level {res['trace_bytes']} == the ledger's, exit 0; with the "
                f"inter ledger bytes raised by 1:")
     with open(metrics_path) as f:
         doc = json.load(f)
@@ -2563,8 +2336,8 @@ def audit_round(phase, device, out_dir):
         json.dump(doc, f)
     bad, res = run_report(phase, argv)
     require(bad == 1 and res["bytes_match"] is False,
-            f"(h) the report exited {bad} on a corrupted ledger, expected 1")
-    log(phase, f"(h) exit {bad} on the corrupted ledger")
+            f"(g) the report exited {bad} on a corrupted ledger, expected 1")
+    log(phase, f"(g) exit {bad} on the corrupted ledger")
     counts = kernels.launch_counts()
     kernels.reset_launch_counts()
     return counts
@@ -2635,10 +2408,10 @@ def archtrain_reduced(device):
 def phase_archtrain(device):
     """Training of the new architectures at full width, traced
     (ARCHTRAIN_RUNS: (a) mamba2-2.7b whole, dense; (b) mamba2-2.7b cut,
-    efbv + qsgd_kernel, its last step profiled (f) and its trace exported
-    and read back by obs.report (g); (c) seamless whole with source frames;
-    (d) llama4 cut to one MoE layer); then (e) the reduced MoE configs card
-    vs CPU and (h) the byte audit of a traced hier round.  Returns the
+    efbv + qsgd_kernel, its trace exported and read back by obs.report
+    (f); (c) seamless whole with source frames; (d) llama4 cut to one MoE
+    layer); then (e) the reduced MoE configs card vs CPU and (g) the byte
+    audit of a traced hier round.  Returns the
     launch counts of the path."""
     from repro_torch import kernels
     from repro_torch.configs.base import SyncConfig, TrainConfig
@@ -2656,10 +2429,9 @@ def phase_archtrain(device):
                                         TRAIN_BATCH, TRAIN_SEQ, seed=1)
             if cfg.enc_layers:
                 batches = with_frames(cfg, batches, device)
-            profiled = sync_kw["mode"] != "dense"
-            run = train_run("archtrain", label, cfg, tc, device, n_groups, 1, batches,
-                            profile_last=profiled)
-            trace_path = export_trace("archtrain", label, run, out_dir, tc) if profiled else None
+            exported = sync_kw["mode"] != "dense"
+            run = train_run("archtrain", label, cfg, tc, device, n_groups, 1, batches)
+            trace_path = export_trace("archtrain", label, run, out_dir, tc) if exported else None
             del run["state"]
             free_cached(device)
             for k, v in run["counts"].items():
@@ -2672,18 +2444,9 @@ def phase_archtrain(device):
             frames = f", source frames {ARCHTRAIN_SRC}" if cfg.enc_layers else ""
             log("archtrain", f"{label}: {cfg.num_layers} of {whole} layers at full width "
                              f"({run['d']} params, {cfg.dtype}{frames}): {run_summary(run)}{aux}")
-            if not profiled:
+            if not exported:
                 continue
-            busy, by_phase, linked = run["profile"]
-            last = run["split"][-1]["total"]
-            clock = "CUDA events" if run["on_card"] else "host clock"
-            log("archtrain", f"(f) {label}: the last step under torch.profiler ({last:.2f} ms "
-                             f"by {clock}): device activity {busy:.2f} ms, by phase "
-                             + ", ".join(f"{k} {v:.2f}" for k, v in by_phase.items())
-                             + f" ms ({linked:.2f} ms linked to a launch); the unprofiled "
-                               f"median step {run['med']['total']:.2f} ms: "
-                             + busy_note(busy, run["med"]["total"]))
-            log("archtrain", f"(g) {label}: obs.report on the exported trace:")
+            log("archtrain", f"(f) {label}: obs.report on the exported trace:")
             argv = [trace_path] + ([] if device.type == "cuda" else ["--device", str(device)])
             kernels.reset_launch_counts()
             rc, res = run_report("archtrain", argv)
@@ -2691,7 +2454,7 @@ def phase_archtrain(device):
                 path[k] += v
             kernels.reset_launch_counts()
             require(rc == 0 and res["bytes_match"] is None,
-                    f"(g) report exit {rc}, bytes_match {res['bytes_match']}")
+                    f"(f) report exit {rc}, bytes_match {res['bytes_match']}")
             del run
         errs = archtrain_reduced(device)
         for k, v in audit_round("archtrain", device, out_dir).items():
@@ -2772,8 +2535,8 @@ def phase_longctx(device, prompt=LONG_PROMPT, frames=LONG_FRAMES, train_seq=LONG
         peak_reset(device)
         try:
             with torch.no_grad():
-                outs, tokens, pre_s, step_s, cache = decode_run(
-                    cfg, params, {"tokens": toks}, LONG_DECODE, device)
+                (outs, tokens, cache), run_s = timed(device, lambda: decode_run(
+                    cfg, params, {"tokens": toks}, LONG_DECODE))
         finally:
             attn.BANDED = False
         require(all(bool(torch.isfinite(o.float()).all()) for o in outs),
@@ -2781,9 +2544,8 @@ def phase_longctx(device, prompt=LONG_PROMPT, frames=LONG_FRAMES, train_seq=LONG
         require(tuple(outs[0].shape) == (1, 1, cfg.padded_vocab()),
                 f"(a) prefill logits {tuple(outs[0].shape)}")
         last[banded], greedy[banded] = outs[0].float(), tokens
-        log("longctx", f"(a) {ARCH} whole, prefill {prompt} tokens, BANDED={banded}: "
-                       f"{1e3 * pre_s:.2f} ms, {LONG_DECODE} decode steps "
-                       f"{', '.join(f'{1e3 * s:.2f}' for s in step_s)} ms, peak "
+        log("longctx", f"(a) {ARCH} whole, prefill {prompt} tokens and {LONG_DECODE} decode "
+                       f"steps, BANDED={banded}: {1e3 * run_s:.2f} ms, peak "
                        f"{peak_gib(device):.2f} GiB")
         del outs, cache
     log("longctx", f"(a) last-position logits BANDED off vs on: max abs diff "
@@ -3444,8 +3206,7 @@ def flop_anchor(device):
     """(d): whole h2o-danube-1.8b's dense train step at (1, 4096) on the
     card under ``FlopCounterMode`` against the dry-run's fake trace of the
     same step (equal), ``costing.corrected_costs`` from 1 and 2 layers
-    (within FLOP_ANCHOR_RTOL), and the achieved rate of a warm run."""
-    import torch
+    (within FLOP_ANCHOR_RTOL)."""
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
@@ -3467,20 +3228,16 @@ def flop_anchor(device):
     with FlopCounterMode(display=False) as fc:
         step.run()
     real = fc.get_total_flops()
-    ms = cuda_ms(step.run, reps=3, warmup=0)
     del step
     free_cached(device)
     require(real == fake, f"dryrun (d): the card's step counts {real} flops, the fake trace "
                           f"{fake}")
     rel = abs(cc - real) / real
     require(rel <= FLOP_ANCHOR_RTOL, f"dryrun (d): corrected_costs {cc} vs {real} ({rel:.4g})")
-    rate = real / (ms * 1e-3)
     log("dryrun", f"(d) flop anchor, {ARCH} whole dense train step at (1, {seq}): "
                   f"FlopCounterMode on the card {real} flops == the fake trace's {fake}; "
                   f"corrected_costs from 1 and 2 layers {cc:.0f} ({rel:.3g} off, <= "
-                  f"{FLOP_ANCHOR_RTOL}; {cc_s:.2f} s host); the step {ms:.2f} ms (CUDA events, "
-                  f"median of 3 warm runs): {rate / 1e12:.2f} TFLOP/s achieved of "
-                  f"{H100_PEAK_FLOPS / 1e12:.1f} peak dense bf16 ({rate / H100_PEAK_FLOPS:.3f})")
+                  f"{FLOP_ANCHOR_RTOL}; {cc_s:.2f} s host)")
 
 
 def phase_dryrun(device):
@@ -3621,11 +3378,11 @@ def phase_delta_timing(device, launches):
     """D1 at mamba2-2.7b's full layout for one dense user: bit for bit
     against its plain version, then its time (CUDA events, medians) beside
     its byte bound (base and the pool's row read once, each leaf written
-    once), the plain version's and each of the three passes it fuses.  A
-    call's time holds the wrapper's host checks, during which the device
-    waits; the device time per call (``queued_ms``) does not."""
+    once) and the plain version's.  A call's time holds the wrapper's host
+    checks of base, pool and table, during which the device waits; the
+    device time per call (``queued_ms``) does not."""
     import torch
-    from repro_torch.comm.buckets import debucketize, empty_tree
+    from repro_torch.comm.buckets import empty_tree
     from repro_torch.kernels import delta_apply as da
     from repro_torch.utils.tree import tree_leaves
 
@@ -3645,29 +3402,22 @@ def phase_delta_timing(device, launches):
     ms = cuda_ms(lambda: da.delta_apply(base, pool, table, tree, layout, work), reps=21)
     device_ms = queued_ms(lambda: da.delta_apply(base, pool, table, tree, layout, work))
     plain_ms = cuda_ms(lambda: da.delta_apply_plain(base, pool, table, plain_tree, layout))
-    gather_ms = cuda_ms(lambda: torch.index_select(pool, 0, table))
-    eff = torch.index_select(pool, 0, table)
-    add_ms = cuda_ms(lambda: eff.add_(base))
-    cast_ms = cuda_ms(lambda: debucketize(eff, layout, out=plain_tree))
     timed = da.delta_apply.launches - before
     nbytes = sum(size * (8 + leaf.element_size())
                  for size, leaf in zip(layout.sizes, tree_leaves(tree))) + 4 * layout.n_buckets
     bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    three = gather_ms + add_ms + cast_ms
     kid, name, replaces, source = DELTA_INFO
     log("timing", f"{kid} {name} ({MAMBA_ARCH}'s layout, d = {layout.d}, one dense user): "
                   f"{ms:.3f} ms, bound {bound_ms:.3f} ms (bytes, {nbytes / 1e9:.2f} GB), "
                   f"{100 * bound_ms / ms:.1f}% of bound; device {device_ms:.3f} ms a call "
                   f"queued, {100 * bound_ms / device_ms:.1f}% of bound; plain {plain_ms:.3f} ms; "
-                  f"the three passes {three:.3f} ms (gather {gather_ms:.3f}, f32 add {add_ms:.3f}, "
-                  f"casts {cast_ms:.3f}); bit for bit the plain version; {launches} launches "
-                  f"on the serve and arch paths, {timed} here")
-    del eff, base, pool, tree, plain_tree, work
+                  f"bit for bit the plain version; {launches} launches on the serve and arch "
+                  f"paths, {timed} here")
+    del base, pool, tree, plain_tree, work
     free_cached(device)
     return {"id": kid, "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": 0.0, "ms": ms,
-            "device_ms": device_ms, "plain_ms": plain_ms, "three_pass_ms": three,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+            "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
 
 
 def phase_mask_timing(d, device, launches):

@@ -14,7 +14,8 @@ are bit for bit ``debucketize(index_select(pool, table) + base)``.
 
 D1 walks a work list that the host builds once per tree (:func:`work_list`
 from :func:`pieces`): pieces of at most ``PIECE`` elements, each inside one
-leaf, so a launch carries only pointers and counts.
+leaf, so a launch carries only pointers and counts.  Building it checks the
+tree and the layout; a call checks only its base, pool and table.
 """
 from __future__ import annotations
 
@@ -45,33 +46,33 @@ def pieces(layout: BucketLayout, cap: int = PIECE) -> np.ndarray:
     return np.concatenate(rows)
 
 
-def _leaves(tree, layout: BucketLayout, device) -> list:
-    """``tree``'s leaves; raise unless each is contiguous, on ``device``, of
-    the layout's shape and dtype, and a dtype D1 stores."""
+def work_list(layout: BucketLayout, tree) -> torch.Tensor:
+    """D1's work list for ``tree``, whose leaves must keep their addresses:
+    (n, 4) int64 on the tree's device, rows (address of the piece's first
+    output element, flat start, length, is_bf16).
+
+    The tree's one check: raise unless each leaf is contiguous, on the
+    first leaf's device, of the layout's shape and dtype, and a dtype D1
+    stores, and unless the bucket size is a power of two of at least 4."""
     leaves = tree_flatten(tree)[0]
     if len(leaves) != len(layout.shapes):
         raise ValueError(f"tree has {len(leaves)} leaves, layout {len(layout.shapes)}")
+    device = leaves[0].device
     for j, (leaf, shape, dt) in enumerate(zip(leaves, layout.shapes, layout.dtypes)):
         if to_dtype(dt) not in DTYPES:
             raise TypeError(f"leaf {j}: dtype {dt}; D1 stores bfloat16 or float32")
         build.check_tensor(leaf, f"leaf {j}", to_dtype(dt), shape, device,
                            align=leaf.element_size())
-    return leaves
-
-
-def work_list(layout: BucketLayout, tree) -> torch.Tensor:
-    """D1's work list for ``tree``, whose leaves must keep their addresses:
-    (n, 4) int64 on the tree's device, rows (address of the piece's first
-    output element, flat start, length, is_bf16)."""
-    first = tree_flatten(tree)[0][0]
-    leaves = _leaves(tree, layout, first.device)
+    bs = layout.bucket_size
+    if bs < 4 or bs & (bs - 1):
+        raise ValueError(f"bucket size {bs}: D1 takes a power of two of at least 4")
     rows = pieces(layout)
     j = rows[:, 0]
     ptr = np.asarray([leaf.data_ptr() for leaf in leaves], np.int64)[j]
     esize = np.asarray([leaf.element_size() for leaf in leaves], np.int64)[j]
     off = np.asarray(layout.offsets, np.int64)[j]
     rows[:, 0] = ptr + (rows[:, 1] - off) * esize
-    return torch.as_tensor(rows).to(first.device)
+    return torch.as_tensor(rows).to(device)
 
 
 def delta_apply_plain(base_blocks: torch.Tensor, pool_blocks: torch.Tensor,
@@ -89,16 +90,16 @@ def delta_apply(base_blocks: torch.Tensor, pool_blocks: torch.Tensor,
     """Write ``debucketize(base_blocks + pool_blocks[table])`` into ``tree``
     in place and return it.  ``base_blocks`` (n_blocks, bs) and
     ``pool_blocks`` (rows, bs) f32, ``table`` (n_blocks,) int32 rows of the
-    pool.  ``work`` is :func:`work_list` of ``tree`` (built here if None).
+    pool.  ``work`` is :func:`work_list` of ``tree`` and ``layout``, which
+    checked them once.
 
     Every entry of ``table`` must be below ``pool_blocks.shape[0]``: the
     plain version's ``index_select`` raises on a row out of range, D1 reads
     the pool there unchecked (the engine's tables come from ``BlockPool``,
     whose rows they index).
 
-    CPU tensors run the plain version; CUDA tensors launch D1, and raise on
-    what it does not take (a leaf dtype other than bf16 / f32, a bucket
-    size not a power of two, non-contiguous or misaligned inputs)."""
+    CPU tensors run the plain version, which needs no ``work``; CUDA
+    tensors launch D1 over ``work``, and raise without it."""
     nb, bs = layout.n_buckets, layout.bucket_size
     build.check_tensor(base_blocks, "base_blocks", torch.float32, (nb, bs))
     device = base_blocks.device
@@ -108,11 +109,9 @@ def delta_apply(base_blocks: torch.Tensor, pool_blocks: torch.Tensor,
     if device.type == "cpu":
         return delta_apply_plain(base_blocks, pool_blocks, table, tree, layout)
     build.require_cuda(base_blocks)
-    _leaves(tree, layout, device)
-    if bs < 4 or bs & (bs - 1):
-        raise ValueError(f"bucket size {bs}: D1 takes a power of two of at least 4")
     if work is None:
-        work = work_list(layout, tree)
+        raise ValueError("D1 writes the tree through its work list: pass "
+                         "work_list(layout, tree)")
     build.check_tensor(work, "work", torch.int64, (work.shape[0], 4), device, align=8)
     build.launch("repro_delta_apply", device, base_blocks, pool_blocks, table, work,
                  work.shape[0], bs.bit_length() - 1)

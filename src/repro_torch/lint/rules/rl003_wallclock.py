@@ -8,8 +8,8 @@ is either dead weight or — worse — quietly mixed into modeled numbers.
 
 Allowed locations: ``src/repro_torch/obs/`` (the flight recorder owns the
 host clock, exported as ``repro_torch.obs.trace.wall_s``) and
-``chip_smoke.py`` (the port's timing harness on the card).  Everything else
-must route through ``wall_s``.
+``chip_smoke.py`` (the port's check on the card, which times its phases and
+the kernels alone).  Everything else must route through ``wall_s``.
 """
 from __future__ import annotations
 

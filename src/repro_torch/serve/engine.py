@@ -19,11 +19,10 @@ leaves as the layout records them), in place: prefill and decode, delta and
 materialized path read the same tree at the same addresses.  On the delta
 path one call writes it, ``kernels.delta_apply.delta_apply``: on a CUDA
 device kernel D1 reads base and the pool's rows once and stores each leaf in
-its dtype, with no f32 ``eff`` (and raises on a layout it does not take); on
-the CPU the plain version (a gather into a transient f32 ``eff``, the add, a
-cast per leaf).  Counters ``serve/delta/fused`` and ``serve/delta/plain``
-count the delta path's slot calls by which of the two ran.  The
-materialized path casts its given blocks with ``debucketize(..., out=)``:
+its dtype, with no f32 ``eff``; on the CPU the plain version (a gather into
+a transient f32 ``eff``, the add, a cast per leaf).  On the card D1's work
+list is built with the tree, once, and raises on a layout D1 does not take.
+The materialized path casts its given blocks with ``debucketize(..., out=)``:
 the independent side of the bitwise certification.
 
 Where every layer is a Mamba mixer and no layer routes experts, on a CUDA
@@ -143,8 +142,6 @@ class DeltaServeEngine:
         """Delta path: ``base + pool[table]`` into the engine's tree, in
         place: D1 on the card, the plain version on the CPU."""
         tree = self._tree()
-        self.metrics.counter("serve/delta/plain" if self._work is None
-                             else "serve/delta/fused").inc()
         with obs_trace.span("serve/slot/eff"):
             return delta_apply(self.store.base_blocks, pool.blocks, table, tree, self.layout,
                                self._work)

@@ -4,15 +4,19 @@ On the CPU: the work list's pieces cover ``[0, layout.d)`` once, each inside
 one leaf, at most ``PIECE`` long and carrying its leaf's dtype, at the full
 layouts of mamba2-2.7b and h2o-danube-1.8b (trees on ``meta``: shapes, no
 weights) and on a small tree of both dtypes whose leaves have sizes that are
-not multiples of 4 and straddle buckets; the work list's addresses; the
-plain version bit for bit equal to ``debucketize(index_select(pool, table)
-+ base)``, with tables aliasing the zero row, a ``-0.0`` base, denormal sums
-and sums that round to infinity in bf16; a table row past the pool refused.
+not multiples of 4 and straddle buckets; the work list's addresses, and
+``work_list``, the tree's one check, refusing a leaf of the wrong dtype or
+shape, a non-contiguous leaf, a dtype D1 does not store and a bucket size
+that is not a power of two; the plain version bit for bit equal to
+``debucketize(index_select(pool, table) + base)``, with tables aliasing the
+zero row, a ``-0.0`` base, denormal sums and sums that round to infinity in
+bf16; a table row past the pool refused.
 
 On the card (``cuda``, skipped without one): the kernel bit for bit equal to
 the plain version on the same cases, with leaves whose output is aligned
 with the flat index and leaves whose output is not; a launch counted per
-call; the wrapper raising on what the kernel does not take.
+call; ``work_list`` and the wrapper raising on what the kernel does not
+take.
 """
 import numpy as np
 import pytest
@@ -73,9 +77,34 @@ def test_pieces_of_a_ragged_tree_stay_inside_their_leaves(cap):
     _check_pieces(layout, da.pieces(layout, cap), cap)
 
 
-def test_work_list_points_at_each_pieces_first_output_element():
+def _spoiled(layout, tree, how):
+    """``(layout, tree)`` with one thing D1 does not take."""
+    leaves = tree_flatten(tree)[0]
+    if how == "bucket":
+        return _layout(bs=12), tree
+    if how == "float16":
+        return bucket_layout({"x": torch.empty(40, dtype=torch.float16)}, BS), \
+            {"x": torch.empty(40, dtype=torch.float16)}
+    bad = {"dtype": lambda leaf: leaf.to(torch.float64),
+           "shape": lambda leaf: leaf.reshape(-1)[:-1].clone(),
+           "strided": lambda leaf: torch.empty((leaf.numel(), 2), dtype=leaf.dtype)[:, 0]}[how]
+    return layout, tree_unflatten(layout.treedef, [bad(leaf) if j == 1 else leaf
+                                                   for j, leaf in enumerate(leaves)])
+
+
+@pytest.mark.parametrize("spoil, error", [(None, None), ("dtype", TypeError),
+                                          ("float16", TypeError), ("shape", ValueError),
+                                          ("strided", ValueError), ("bucket", ValueError)])
+def test_work_list_points_at_each_pieces_first_output_element(spoil, error):
+    """The work list's addresses; building it is the tree's one check, so
+    it refuses a leaf of the wrong dtype or shape, a non-contiguous leaf, a
+    dtype D1 does not store and a bucket size that is not a power of two."""
     layout = _layout()
     tree = empty_tree(layout)
+    if spoil is not None:
+        with pytest.raises(error):
+            da.work_list(*_spoiled(layout, tree, spoil))
+        return
     leaves = tree_flatten(tree)[0]
     work = da.work_list(layout, tree).numpy()
     rows = da.pieces(layout)
@@ -196,15 +225,15 @@ def test_kernel_equals_the_plain_version_bitwise(cuda_device, seed, shifted):
     layout, base, pool, table, tree = _case(cuda_device, seed, shifted)
     plain = empty_tree(layout, cuda_device)
     da.delta_apply_plain(base, pool, table, plain, layout)
+    work = da.work_list(layout, tree)
     before = da.delta_apply.launches
-    assert da.delta_apply(base, pool, table, tree, layout) is tree
+    assert da.delta_apply(base, pool, table, tree, layout, work) is tree
     torch.cuda.synchronize(cuda_device)
     assert da.delta_apply.launches == before + 1
     _assert_bits(tree, [leaf.cpu() for leaf in tree_flatten(plain)[0]])
     _assert_bits(tree, _want(layout, base, pool, table))
     # a second table into the same tree at the same addresses
     ptrs = [leaf.data_ptr() for leaf in tree_flatten(tree)[0]]
-    work = da.work_list(layout, tree)
     table2 = torch.flip(table, (0,)).contiguous()
     da.delta_apply(base, pool, table2, tree, layout, work)
     torch.cuda.synchronize(cuda_device)
@@ -214,20 +243,24 @@ def test_kernel_equals_the_plain_version_bitwise(cuda_device, seed, shifted):
 
 @pytest.mark.cuda
 def test_kernel_raises_on_what_it_does_not_take(cuda_device):
+    """A tree or layout D1 does not take raises where its work list is
+    built; a call without the work list or with a bad table raises; none
+    launches."""
     layout, base, pool, table, tree = _case(cuda_device, 4)
     half = {"x": torch.empty(40, dtype=torch.float16, device=cuda_device)}
-    hl = bucket_layout(half, BS)
-    hb = torch.zeros((hl.n_buckets, BS), device=cuda_device)
-    ht = torch.zeros(hl.n_buckets, dtype=torch.int32, device=cuda_device)
     before = da.delta_apply.launches
     with pytest.raises(TypeError):
-        da.delta_apply(hb, pool, ht, half, hl)
+        da.work_list(bucket_layout(half, BS), half)
     with pytest.raises(ValueError):
-        da.delta_apply(base, pool, table, tree, _layout(bs=12))
+        da.work_list(_layout(bs=12), tree)
     leaves = tree_flatten(tree)[0]
     strided = torch.empty((leaves[1].numel(), 2), device=cuda_device)[:, 0]
     bad = tree_unflatten(layout.treedef, [strided if i == 1 else leaf
                                           for i, leaf in enumerate(leaves)])
     with pytest.raises(ValueError):
-        da.delta_apply(base, pool, table, bad, layout)
+        da.work_list(layout, bad)
+    with pytest.raises(ValueError):
+        da.delta_apply(base, pool, table, tree, layout)
+    with pytest.raises(TypeError):
+        da.delta_apply(base, pool, table.long(), tree, layout, da.work_list(layout, tree))
     assert da.delta_apply.launches == before

@@ -11,7 +11,7 @@ On the card (``cuda``, skipped without one): a reduced mamba2 served by a
 2-slot ``PersonalizedBatcher`` over 3 users gives the same greedy tokens
 with graphs as eagerly, logits within bf16 rounding, one capture a slot
 and a replay for every later slot decode call; the delta apply runs as
-kernel D1 at every slot call (``serve/delta/fused``), its tree bit for bit
+kernel D1 at every slot call (the wrapper's launches), its tree bit for bit
 ``debucketize(eff)`` at fixed addresses, and the delta path's logits bit
 for bit the materialized path's.
 """
@@ -163,17 +163,16 @@ def test_on_the_cpu_every_slot_decode_call_counts_eager(arch):
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "h2o-danube-1.8b"])
 def test_on_the_cpu_every_delta_apply_runs_the_plain_version(arch):
-    """``serve/delta/plain`` counts every slot call of the delta path,
-    prefill and decode, and ``serve/delta/fused`` none; D1 never launches."""
+    """The delta path's slot calls, prefill and decode, launch no D1 and
+    the engine builds no work list for it."""
     from repro_torch.kernels import delta_apply
 
     cfg = _cfg(arch)
     store, pool, metrics = _world(cfg, users=2)
     before = delta_apply.delta_apply.launches
     b, _, _ = _serve(cfg, store, pool, 2, [(0, [5, 6, 7], 3), (1, [8, 9], 5)])
-    calls = b.n_slots * (b.stats.decode_steps + b.stats.prefills)
-    assert metrics.get("serve/delta/plain").total == calls > 0
-    assert metrics.get("serve/delta/fused") is None
+    assert b.stats.decode_steps + b.stats.prefills > 0
+    assert b.engine._params is not None and b.engine._work is None
     assert delta_apply.delta_apply.launches == before
 
 
@@ -251,7 +250,7 @@ def test_graphed_decode_gives_the_eager_tokens(cuda_device, monkeypatch):
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "h2o-danube-1.8b"])
 def test_on_the_card_the_delta_apply_is_d1_and_writes_debucketize_bitwise(cuda_device, arch):
     """Every delta-path slot call, prefill and decode, runs D1 once
-    (``serve/delta/fused``, the wrapper's launches); the engine's tree after
+    (the wrapper's launches); the engine's tree after
     an apply equals ``debucketize(eff)`` leaf by leaf in dtype and bits, at
     the addresses it had."""
     from repro_torch.kernels import delta_apply
@@ -274,13 +273,10 @@ def test_on_the_card_the_delta_apply_is_d1_and_writes_debucketize_bitwise(cuda_d
         assert ptrs is None or now == ptrs
         ptrs = now
     before = delta_apply.delta_apply.launches
-    fused0 = metrics.get("serve/delta/fused").total
     b, _, _ = _serve(cfg, store, pool, 2, [(0, [5, 6, 7], 3), (1, [8, 9], 5),
                                            (None, [4, 4, 4, 4], 2)])
     calls = b.n_slots * (b.stats.decode_steps + b.stats.prefills)
-    assert metrics.get("serve/delta/fused").total - fused0 == calls > 0
-    assert delta_apply.delta_apply.launches - before == calls
-    assert metrics.get("serve/delta/plain") is None
+    assert delta_apply.delta_apply.launches - before == calls > 0
 
 
 @pytest.mark.cuda
@@ -290,11 +286,13 @@ def test_delta_path_bitwise_equals_materialized_on_the_card(cuda_device, arch):
     (D1 into the tree) equal the materialized path's (``debucketize`` of
     each user's materialized blocks into the same tree), bit for bit, in
     prefill and every decode step; mamba2's decode steps are graphs."""
+    from repro_torch.kernels import delta_apply
     from repro_torch.serve import DeltaServeEngine
 
     cfg = _cfg(arch)
     store, pool, metrics = _world(cfg, users=2, device=cuda_device)
     eng = DeltaServeEngine(cfg, store, max_len=32, metrics=metrics)
+    before = delta_apply.delta_apply.launches
     tables = torch.stack([pool.acquire(u).table for u in range(2)] +
                          [torch.zeros_like(pool.table_for(0))])
     eff = eng.eff_blocks_for([store.personalized_params(0), store.personalized_params(1),
@@ -308,4 +306,4 @@ def test_delta_path_bitwise_equals_materialized_on_the_card(cuda_device, arch):
         logits, cache = eng.decode(pool, tables, tok, cache)
         lm, cm = eng.decode_materialized(eff, tok, cm)
         assert torch.equal(logits, lm)
-    assert metrics.get("serve/delta/fused").total == 3 * 5
+    assert delta_apply.delta_apply.launches - before == 3 * 5

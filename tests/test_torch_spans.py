@@ -121,12 +121,11 @@ def _store(cfg, users: int = 2):
     return store
 
 
-def _serve(monkeypatch, trace_on: bool, wrap: bool):
+def _serve(trace_on: bool):
     """Two requests of two users on a 2-slot ``PersonalizedBatcher`` of
     reduced danube, run to the end -> (batcher, spans)."""
     import numpy as np
 
-    import repro_torch.serve.engine as engine_mod
     from repro_torch.configs import get_config
     from repro_torch.obs.metrics import MetricsRegistry
     from repro_torch.serve import BlockPool, PersonalizedBatcher
@@ -136,10 +135,6 @@ def _serve(monkeypatch, trace_on: bool, wrap: bool):
     store = _store(cfg)
     pool = BlockPool(store, 64, metrics=MetricsRegistry())
     b = PersonalizedBatcher(cfg, store, pool, n_slots=2, max_len=32)
-    if wrap:
-        from perf_bench.harness import spans as bench_spans
-        monkeypatch.setattr(engine_mod, "delta_apply", engine_mod.delta_apply)
-        bench_spans.wrap(engine_mod, "delta_apply", "bench/delta_apply")
     rng = np.random.default_rng(0)
     for rid, n in enumerate((5, 8)):
         b.submit(Request(rid=rid, prompt=rng.integers(1, cfg.vocab_size, n), max_new=4,
@@ -151,8 +146,8 @@ def _serve(monkeypatch, trace_on: bool, wrap: bool):
     return b, obs_trace.get_tracer().spans()
 
 
-def test_every_slot_call_is_traced_and_the_benchmark_wraps_still_see_them(monkeypatch):
-    b, spans = _serve(monkeypatch, trace_on=True, wrap=True)
+def test_every_slot_call_is_traced():
+    b, spans = _serve(trace_on=True)
     names = _names(spans)
     decodes = [s for s in spans if s.name == "serve/decode"]
     assert len(decodes) == b.stats.decode_steps > 0
@@ -173,14 +168,10 @@ def test_every_slot_call_is_traced_and_the_benchmark_wraps_still_see_them(monkey
     # materialized path opens ``serve/slot/debucketize``
     assert names.count("serve/slot/eff") == calls
     assert names.count("serve/slot/debucketize") == 0
-    # a benchmark wrap times the same calls, each inside the program's span
-    assert names.count("bench/delta_apply") == calls
-    for e in (s for s in spans if s.name == "serve/slot/eff"):
-        assert len(_inside(e, spans, "bench/delta_apply")) == 1
 
 
-def test_serving_records_nothing_with_tracing_off(monkeypatch):
-    b, spans = _serve(monkeypatch, trace_on=False, wrap=False)
+def test_serving_records_nothing_with_tracing_off():
+    b, spans = _serve(trace_on=False)
     assert b.stats.completed == 2 and spans == []
     assert obs_trace.get_tracer().n_recorded == 0
 
